@@ -63,6 +63,8 @@ from repro.core.graph import CSR, csr_from_edges
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running subprocess/compile tests")
+    config.addinivalue_line(
+        "markers", "gpu: runs a CUDA kernel on the card; skips without one")
 
 
 def random_csr(rng: np.random.Generator, num_nodes: int, avg_deg: float,
