@@ -19,6 +19,7 @@ def infer_logits(ds: GraphDataset, model: str, params, *,
                  sh_width: int = 128, strategy: str = "aes",
                  backend: str = "torch",
                  quantize_bits: Optional[int] = None,
+                 fuse_layers: bool = False,
                  device=None) -> torch.Tensor:
     """The logits :func:`evaluate` scores, f32[nodes, classes], computed on
     ``device`` (default ``"cuda"``); ``ds`` is copied there and the
@@ -28,7 +29,11 @@ def infer_logits(ds: GraphDataset, model: str, params, *,
     ``"cuda"`` backend serves them through the int8 gather kernel and
     re-encodes the hidden layer with the stored range (float on drift);
     ``"torch"`` and ``"cuda_fused"`` aggregate the Eq. 2 reconstruction.
+    ``fuse_layers=True`` (GCN, ``"torch"`` or ``"cuda"``) runs each layer
+    as one fused step (see :func:`_fused_gcn_logits`).
     """
+    if fuse_layers:
+        _check_fused(model, strategy, backend)
     device = resolve_device(device)
     _, _, adj_name = MODELS[model]
     ds = ds.to(device)
@@ -36,18 +41,64 @@ def infer_logits(ds: GraphDataset, model: str, params, *,
     adj = getattr(ds, adj_name)
     feats = ds.features
 
-    quantized = None
-    if quantize_bits is not None:
-        quantized = quantize(feats, quantize_bits)
-        feats = dequantize(quantized)
-
-    if strategy == "full":
-        agg = exact_agg
-    else:
-        agg = make_sampled_agg(sh_width, strategy, backend,
-                               quantized if backend == "cuda" else None)
     with torch.inference_mode():
+        if fuse_layers:
+            return _fused_gcn_logits(adj, feats, params, sh_width=sh_width,
+                                     strategy=strategy, backend=backend,
+                                     quantize_bits=quantize_bits)
+        quantized = None
+        if quantize_bits is not None:
+            quantized = quantize(feats, quantize_bits)
+            feats = dequantize(quantized)
+        if strategy == "full":
+            agg = exact_agg
+        else:
+            agg = make_sampled_agg(sh_width, strategy, backend,
+                                   quantized if backend == "cuda" else None)
         return params(adj, feats, agg)
+
+
+def _check_fused(model: str, strategy: str, backend: str) -> None:
+    """The reference package's checks of ``fuse_layers=True``; the tuned
+    ``strategy="auto"`` is not ported yet."""
+    if model != "gcn":
+        raise ValueError(
+            f"fuse_layers supports the 2-layer GCN forward only, not "
+            f"{model!r} (GraphSAGE's concat-self transform is not fused)")
+    if strategy == "auto":
+        raise not_ported('strategy="auto"')
+    if backend not in ("torch", "cuda"):
+        raise ValueError(f"fuse_layers supports backends 'torch'/'cuda', "
+                         f"not {backend!r}")
+
+
+def _fused_gcn_logits(adj, feats, params, *, sh_width: int, strategy: str,
+                      backend: str, quantize_bits: Optional[int]):
+    """Forward pass for ``fuse_layers=True``: both GCN layers through
+    ``PlanExecutor.run_fused_layer`` over one sampled operand (the
+    ``aes_sample`` kernel on ``"cuda"``).
+
+    Mirrors the unfused semantics: the features are quantized once and
+    layer 1 runs on their Eq. 2 reconstruction (the int8 gather on
+    ``"cuda"``); layer 2 feeds the hidden activation back with the range
+    guard — in-range activations re-encode against the stored
+    ``(x_min, x_max)``, drifted ones take the float path.
+    """
+    from repro_torch.core.aes_spmm import sample
+    from repro_torch.exec import PlanExecutor
+
+    executor = PlanExecutor()
+    qf = None
+    if quantize_bits is not None:
+        qf = quantize(feats, quantize_bits)
+        feats = dequantize(qf)
+    ell = sample(adj, sh_width, strategy, backend=backend)
+    h = executor.run_fused_layer(
+        ell, feats, params.w1, params.b1, relu=True, backend=backend,
+        quantized=qf, requant_guard=qf is not None)
+    return executor.run_fused_layer(
+        ell, h, params.w2, params.b2, relu=False, backend=backend,
+        quantized=qf, requant_guard=qf is not None)
 
 
 def evaluate(ds: GraphDataset, model: str, params, *, sh_width: int = 128,
@@ -67,24 +118,37 @@ def evaluate(ds: GraphDataset, model: str, params, *, sh_width: int = 128,
         "full".
       backend: "torch" | "cuda" | "cuda_fused".
       quantize_bits: None or 8 (16 works too).
+      fuse_layers: GCN only, backends "torch" | "cuda": each layer —
+        aggregation, dense transform, activation — as one fused step
+        through ``exec.PlanExecutor.run_fused_layer`` (one kernel launch
+        per layer on ``"cuda"``: the aggregation never reaches device
+        memory).  Quantized inputs serve the fused int8 gather;
+        hidden-layer activations re-quantize within the stored range or
+        take the float path on range drift.
 
-    ``strategy="auto"``, ``granularity="block"``, ``shards=`` and
-    ``fuse_layers=True`` come with later slices and raise
-    ``NotImplementedError``.
+    ``strategy="auto"``, ``granularity="block"`` and ``shards=`` come with
+    later slices and raise ``NotImplementedError``; with
+    ``fuse_layers=True``, ``shards=``, ``granularity="block"``, GraphSAGE
+    and ``"cuda_fused"`` raise ``ValueError``, as in the reference.
     """
-    if granularity != "graph":
-        raise not_ported(f"granularity={granularity!r}")
     if shards is not None:
+        if fuse_layers:
+            raise ValueError("fuse_layers is a single-device path "
+                             "(incompatible with shards=)")
         raise not_ported("shards=", "serving")
-    if fuse_layers:
-        raise not_ported("fuse_layers=True", "fused-layer")
+    if granularity != "graph":
+        if fuse_layers:
+            raise ValueError('fuse_layers requires granularity="graph" '
+                             "(a fused layer runs one global ELL operand)")
+        raise not_ported(f"granularity={granularity!r}")
     with obs.trace("gnn.evaluate", model=model, strategy=strategy,
                    backend=backend, granularity=granularity,
                    shards=shards or 0, fuse_layers=fuse_layers,
                    quant_bits=quantize_bits or 0) as sp:
         logits = infer_logits(ds, model, params, sh_width=sh_width,
                               strategy=strategy, backend=backend,
-                              quantize_bits=quantize_bits, device=device)
+                              quantize_bits=quantize_bits,
+                              fuse_layers=fuse_layers, device=device)
         acc = accuracy(logits, ds.labels.to(logits.device),
                        ds.test_mask.to(logits.device))
         sp.set(accuracy=round(acc, 4))

@@ -1,10 +1,14 @@
 // Shared device code for the kernels: the Table 1 strategy of one row
-// and the inverse slot map of Algorithm 1, plus the C entry point that turns
-// a CUDA error code into text for the Python wrappers.
+// and the inverse slot map of Algorithm 1; Eq. 2 and the warp-per-row
+// live-prefix gather of the ELL SpMM, which the fused layer reuses; plus the
+// C entry point that turns a CUDA error code into text for the Python
+// wrappers.
 //
-// The arithmetic is int32, as in the reference sampler
+// The sampler arithmetic is int32, as in the reference sampler
 // (repro_torch/core/sampling.py), so the kernels reproduce it bit for bit.
 #pragma once
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
@@ -54,6 +58,83 @@ __device__ __forceinline__ int aes_slot_offset(const AesRow& r, int s) {
 // Slots a row keeps live (the fused kernel's accumulation bound).
 __device__ __forceinline__ int aes_live_width(const AesRow& r) {
   return r.nnz > 0 ? min(r.n * r.cnt, r.w) : 0;
+}
+
+// Eq. 2, q * scale + x_min, rounded after the product and after the sum as
+// the plain PyTorch version rounds (no FMA contraction): a dequantized value
+// is bit-identical to it.
+__device__ __forceinline__ float eq2(float q, float scale, float x_min) {
+  return __fadd_rn(__fmul_rn(q, scale), x_min);
+}
+
+// One element of B as f32: float B as it is, uint8/uint16 B through Eq. 2.
+__device__ __forceinline__ float load_feature(const float* b, int64_t i,
+                                              float, float) {
+  return b[i];
+}
+__device__ __forceinline__ float load_feature(const uint8_t* b, int64_t i,
+                                              float scale, float x_min) {
+  return eq2(static_cast<float>(b[i]), scale, x_min);
+}
+__device__ __forceinline__ float load_feature(const uint16_t* b, int64_t i,
+                                              float scale, float x_min) {
+  return eq2(static_cast<float>(b[i]), scale, x_min);
+}
+
+// Eq. 2's constants from device memory (a launch never waits for the host);
+// float B passes null pointers and gets the identity.
+__device__ __forceinline__ float2 eq2_constants(const float* scale_p,
+                                                const float* x_min_p) {
+  return make_float2(scale_p != nullptr ? *scale_p : 1.f,
+                     x_min_p != nullptr ? *x_min_p : 0.f);
+}
+
+constexpr int kGatherFeatPerLane = 4;
+constexpr int kGatherFeatPerPass = 32 * kGatherFeatPerLane;
+
+// dst[f] = sum_{k < live} vrow[k] * B[crow[k], f] for f < feat, computed by
+// the one warp that calls it (lane = its lane id).  Lanes run across
+// features, so every B row is read coalesced; the warp loads 32 slots of
+// (val, col) at once, one per lane, and broadcasts them with shuffles; each
+// lane keeps kGatherFeatPerLane accumulators, so one pass covers 128
+// features.  Slots are summed in slot order with an f32 accumulator, as the
+// plain version does (nvcc contracts a*b+c into FMA, so the sum agrees to
+// float tolerance, not bit for bit).  dst may be global or shared memory.
+template <typename T>
+__device__ __forceinline__ void warp_gather_row(
+    const float* __restrict__ vrow, const int* __restrict__ crow, int live,
+    const T* __restrict__ b, int feat, float scale, float x_min, float* dst,
+    int lane) {
+  for (int f0 = 0; f0 < feat; f0 += kGatherFeatPerPass) {
+    float acc[kGatherFeatPerLane];
+#pragma unroll
+    for (int i = 0; i < kGatherFeatPerLane; ++i) acc[i] = 0.f;
+
+    for (int k0 = 0; k0 < live; k0 += 32) {
+      float my_v = 0.f;
+      int my_c = 0;
+      if (k0 + lane < live) {
+        my_v = vrow[k0 + lane];
+        my_c = crow[k0 + lane];
+      }
+      const int n = min(32, live - k0);
+      for (int kk = 0; kk < n; ++kk) {
+        const float v = __shfl_sync(0xffffffffu, my_v, kk);
+        const int c = __shfl_sync(0xffffffffu, my_c, kk);
+        const T* brow = b + static_cast<int64_t>(c) * feat;
+#pragma unroll
+        for (int i = 0; i < kGatherFeatPerLane; ++i) {
+          const int f = f0 + i * 32 + lane;
+          if (f < feat) acc[i] += v * load_feature(brow, f, scale, x_min);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kGatherFeatPerLane; ++i) {
+      const int f = f0 + i * 32 + lane;
+      if (f < feat) dst[f] = acc[i];
+    }
+  }
 }
 
 extern "C" const char* repro_cuda_error_string(int code) {

@@ -9,7 +9,9 @@ from __future__ import annotations
 
 from repro_torch.core.graph import CSR, ELL, ell_live_widths
 from repro_torch.kernels import aes_sample as _sample_mod
+from repro_torch.kernels import dequant as _dequant_mod
 from repro_torch.kernels import ell_spmm as _ell_mod
+from repro_torch.kernels import fused_layer as _layer_mod
 from repro_torch.kernels import fused_spmm as _fused_mod
 
 #: The launch-counted kernel wrappers, by kernel name.
@@ -17,7 +19,16 @@ KERNELS = {
     "ell_spmm": _ell_mod.ell_spmm,
     "aes_sample": _sample_mod.aes_sample,
     "fused_aes_spmm": _fused_mod.fused_aes_spmm,
+    "fused_layer": _layer_mod.fused_layer,
+    "dequantize": _dequant_mod.dequantize,
 }
+
+# The reference package's bound on a fused layer's F and H (there the
+# VMEM budget of the aggregation tile, the weights and the B rows).  On
+# Hopper the kernel keeps the [rows, F] aggregation tile in shared memory
+# (8 rows of F f32 values at F = 2048, 64 KiB of a block's 227 KiB), so the
+# same bound stands for its shared-memory budget.
+_FUSED_LAYER_MAX_DIM = 2048
 
 
 def launch_counts() -> dict:
@@ -63,3 +74,51 @@ def fused_aes_spmm(csr: CSR, b, sh_width: int):
     ELL materialized.  Returns f32[num_rows, feat]."""
     return _fused_mod.fused_aes_spmm(csr.row_ptr, csr.col_ind, csr.val,
                                      b.contiguous(), sh_width)
+
+
+def fused_layer_spmm(ell: ELL, b, w, bias, live_w=None, *, relu: bool = True,
+                     quantized_meta=None):
+    """Fused GNN layer: gather + (dequant) + SpMM + dense transform +
+    activation in one launch; the aggregation never reaches device memory.
+
+    Args:
+      ell: sampled operand (same contract as :func:`ell_spmm`).
+      b: dense operand ``[num_nodes, feat]`` — f32, or uint8/uint16 when
+        ``quantized_meta`` is given.
+      w: layer weights f32[feat, hidden].
+      bias: layer bias f32[hidden].
+      live_w: optional int32[rows] live-prefix lengths; decoded from the
+        zero sentinel when omitted.
+      relu: apply ReLU after the bias add (False for a logits layer).
+      quantized_meta: ``(scale, x_min)`` enables the fused-dequant gather.
+
+    Returns f32[rows, hidden] with
+    ``out[r] = act(sum_k ell.val[r, k] * B[ell.col[r, k]] @ W + bias)``.
+    """
+    feat, hidden = b.shape[1], w.shape[1]
+    if w.shape[0] != feat:
+        raise ValueError(
+            f"weight rows {w.shape[0]} != operand features {feat}")
+    if feat > _FUSED_LAYER_MAX_DIM or hidden > _FUSED_LAYER_MAX_DIM:
+        raise ValueError(
+            f"fused layer dims F={feat}, H={hidden} exceed the shared-memory "
+            f"budget ({_FUSED_LAYER_MAX_DIM}); use the unfused path")
+    if live_w is None:
+        live_w = ell_live_widths(ell.val, ell.col)
+    return _layer_mod.fused_layer(
+        ell.val.contiguous(), ell.col.contiguous(), live_w.contiguous(),
+        b.contiguous(), w.contiguous(), bias.reshape(-1).contiguous(),
+        relu=relu, quantized_meta=quantized_meta)
+
+
+def dequantize(q, scale, x_min, *, bits: int = 8):
+    """Dequantization (paper Eq. 2): ``q * scale + x_min``.
+
+    Args:
+      q: quantized matrix uint8/uint16[n, f].
+      scale / x_min: the affine dequant constants.
+      bits: source bit width (8 or 16).
+
+    Returns f32[n, f].
+    """
+    return _dequant_mod.dequantize(q.contiguous(), scale, x_min, bits=bits)

@@ -38,6 +38,25 @@ def ell_spmm_rowloop(ell_val, ell_col, b):
     return acc
 
 
+def fused_layer(ell_val, ell_col, b, w, bias, *, relu: bool = True):
+    """The fused layer as separate ops: ``act(ell_spmm(ell, B) @ W +
+    bias)`` with ``act`` ReLU or identity (the eager ``backend="torch"``
+    path of ``PlanExecutor.run_fused_layer``)."""
+    h = ell_spmm_rowloop(ell_val, ell_col, b) @ w + bias
+    return torch.relu(h) if relu else h
+
+
+def quant_fused_layer(ell_val, ell_col, qf, w, bias, *, relu: bool = True):
+    """Dequantize-then-layer version of the quantized fused layer:
+    materialize Eq. 2, then :func:`fused_layer`.
+
+    Args:
+      qf: a ``repro_torch.core.quantization.QuantizedFeatures``.
+    """
+    x = dequantize(qf.q, qf.x_min, qf.x_max, qf.bits)
+    return fused_layer(ell_val, ell_col, x, w, bias, relu=relu)
+
+
 def dequantize(q, x_min, x_max, bits: int = 8):
     """Paper Eq. 2: ``q * (x_max - x_min) / (2^bits - 1) + x_min``."""
     scale = (x_max - x_min) / (2**bits - 1)

@@ -92,7 +92,7 @@ def test_unported_options_raise(trained):
     _, tds, params = trained
     m = params["gcn"][1]
     for kw in (dict(strategy="auto"), dict(granularity="block"),
-               dict(shards=2), dict(fuse_layers=True)):
+               dict(shards=2), dict(strategy="auto", fuse_layers=True)):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             evaluate(tds, "gcn", m, device=CPU, **kw)
     with pytest.raises(ValueError, match="unknown backend"):

@@ -6,9 +6,12 @@ JAX), so on that machine run it without the suite's conftest::
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_gpu.py
 
-Tolerances: the sampler is bit-exact; float SpMM agrees to 1e-5 (nvcc
-contracts a*b+c into FMA, the plain version rounds twice); the quantized
-gather to 1e-4, as in the reference package's tests.  Cases loop inside
+Tolerances: the sampler and the dequantization are bit-exact; float SpMM
+agrees to 1e-5 (nvcc contracts a*b+c into FMA, the plain version rounds
+twice); the quantized gather to 1e-4, as in the reference package's
+tests; the fused layer to 1e-4, the tolerance of
+tests/test_conformance.py:_path_fused_layer (its transform sums in
+another order than cuBLAS).  Cases loop inside
 tests, so the file stays smaller than the JAX package's test files (see
 tests/test_torch_core.py).
 """
@@ -22,7 +25,9 @@ from repro_torch.core.graph import CSR, csr_from_edges, ell_live_widths
 from repro_torch.core.quantization import quantize
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import aes_sample as aes_mod
+from repro_torch.kernels import dequant as dequant_mod
 from repro_torch.kernels import ell_spmm as ell_mod
+from repro_torch.kernels import fused_layer as layer_mod
 from repro_torch.kernels import fused_spmm as fused_mod
 
 pytestmark = pytest.mark.gpu
@@ -74,7 +79,8 @@ def _check_all(g: CSR, x: torch.Tensor, W: int):
             rtol=1e-4, atol=1e-4)
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"aes_sample": 1, "ell_spmm": 3,
-                                   "fused_aes_spmm": 1}
+                                   "fused_aes_spmm": 1, "fused_layer": 0,
+                                   "dequantize": 0}
 
 
 def test_kernels_match_plain(cuda):
@@ -119,3 +125,58 @@ def test_every_kernel_builds_for_sm90a(cuda):
     assert set(seconds) == set(_build.KERNELS)
     for name in _build.KERNELS:
         assert _build.library_path(name).exists()
+
+
+def test_fused_layer_matches_plain(cuda):
+    """f32/u8/u16 B, both activations, ragged F and H up to H=41, and
+    F = H = 2048, whose 64 KiB aggregation tile needs opt-in shared
+    memory."""
+    for n, feat, hidden, W in ((37, 33, 41, 16), (70, 60, 5, 128),
+                               (130, 64, 1, 4), (24, 2048, 2048, 8)):
+        g = _graph(n + W, n, 9.0, 0.7, cuda)
+        rng = np.random.default_rng(n)
+        x = torch.from_numpy(rng.normal(size=(n, feat)).astype(np.float32)
+                             ).to(cuda)
+        w = torch.from_numpy((rng.normal(size=(feat, hidden))
+                              / np.sqrt(feat)).astype(np.float32)).to(cuda)
+        bias = torch.from_numpy(rng.normal(size=hidden).astype(np.float32)
+                                ).to(cuda)
+        ell = ops.aes_sample(g, W)
+        live = ell_live_widths(ell.val, ell.col)
+        ops.reset_launch_counts()
+        for relu in (True, False):
+            for bits in (None, 8, 16):
+                b, meta = x, None
+                if bits is not None:
+                    qf = quantize(x, bits)
+                    b, meta = qf.q, (qf.scale, qf.x_min)
+                torch.testing.assert_close(
+                    ops.fused_layer_spmm(ell, b, w, bias, live, relu=relu,
+                                         quantized_meta=meta),
+                    layer_mod.fused_layer_plain(ell.val, ell.col, live, b, w,
+                                                bias, relu=relu,
+                                                quantized_meta=meta),
+                    rtol=1e-4, atol=1e-4,
+                    msg=lambda m: f"F={feat} H={hidden} relu={relu} "
+                                  f"bits={bits}: {m}")
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["fused_layer"] == 6
+
+
+def test_dequantize_bit_exact(cuda):
+    """tests/test_kernels.py's shapes, plus a misaligned view (the scalar
+    path) and a length that leaves a vector tail."""
+    ops.reset_launch_counts()
+    calls = 0
+    for shape in ((8, 128), (256, 128), (100, 33), (1, 1), (1001, 37)):
+        for bits in (8, 16):
+            x = torch.from_numpy(np.random.default_rng(3).normal(
+                size=shape).astype(np.float32) * 5).to(cuda)
+            qf = quantize(x, bits)
+            for q in (qf.q, qf.q.reshape(-1)[1:].reshape(1, -1)):
+                got = ops.dequantize(q, qf.scale, qf.x_min, bits=bits)
+                assert torch.equal(got, dequant_mod.dequantize_plain(
+                    q, qf.scale, qf.x_min)), (shape, bits)
+                calls += q.numel() > 0
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["dequantize"] == calls == 18

@@ -106,13 +106,19 @@ def test_cpu_calls_launch_no_kernel():
     b = torch.ones((20, 8))
     ops.ell_spmm(ops.aes_sample(g, 8), b)
     ops.fused_aes_spmm(g, b, 8)
+    ops.fused_layer_spmm(ops.aes_sample(g, 8), b, torch.ones((8, 3)),
+                         torch.zeros(3))
+    ops.dequantize(torch.zeros((4, 4), dtype=torch.uint8), 1.0, 0.0)
     ds = make_dataset("cora", scale=0.01, device="cpu")
     model = init_gcn(np.random.default_rng(0), 96, 8, 7, device="cpu")
-    for backend in ("cuda", "cuda_fused"):
+    for backend, fuse in (("cuda", False), ("cuda_fused", False),
+                          ("cuda", True)):
         evaluate(ds, "gcn", model, sh_width=8, backend=backend,
+                 fuse_layers=fuse, quantize_bits=8 if fuse else None,
                  device="cpu")
     assert ops.launch_counts() == {"ell_spmm": 0, "aes_sample": 0,
-                                   "fused_aes_spmm": 0}
+                                   "fused_aes_spmm": 0, "fused_layer": 0,
+                                   "dequantize": 0}
 
 
 def test_build_names_sm90a_and_tracks_sources():
@@ -121,7 +127,7 @@ def test_build_names_sm90a_and_tracks_sources():
         path = _build.library_path(name)
         assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
         assert (_build.CSRC / f"{name}.cu").exists()
-    assert len({_build.library_path(n) for n in _build.KERNELS}) == 3
+    assert len({_build.library_path(n) for n in _build.KERNELS}) == 5
 
 
 def test_build_without_nvcc_raises_instead_of_falling_back(monkeypatch):
