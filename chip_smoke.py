@@ -16,7 +16,11 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    at W in {1, 16, 128}: the sampler bit-exact, float SpMM to 1e-5, the
    uint8 gather to 1e-4, the fused layer (f32/u8/u16 B, H in {1, 5, 41},
    both activations, plus one F = H = 2048 case) to 1e-4; the
-   dequantization bit-exact on the reference's test shapes.
+   dequantization bit-exact on the reference's test shapes; the blocked
+   SpMM (f32 to 1e-5, u8/u16 to 1e-4) on BlockELLs stitched from the same
+   graphs at block_rows in {1, 256, 4096} with mixed strategies, over one
+   to three width buckets and a partial partition, plus a "full" block
+   more than 1024 slots wide.
 4. Main path: ``make_dataset("reddit", scale=1.0, max_avg_degree=None)``
    (232,965 nodes, the published average degree) through ``evaluate`` for
    GCN and GraphSAGE at the paper's configuration (hidden 64, W=128), with
@@ -32,17 +36,31 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    is only logged; the int8 paths re-quantize their hidden layer, so their
    aggregations and fused layers are held one by one on identical
    operands); every kernel's launch counter must have moved.
+   Then the tuned path, its launch counts set to 0 just before it and read
+   just after: ``evaluate(strategy="auto")`` for GCN and GraphSAGE at
+   ``granularity="block"`` (``tune_blocked``'s defaults: 4096-row blocks,
+   widths 16-256, at most 3 width buckets; f32 and int8, natural and
+   degree-sorted) and ``granularity="graph"``, and GCN's fused layers with
+   ``strategy="auto"``; each cold (tuning) and warm (plan-cache hit), every
+   blocked ``evaluate`` launching the blocked kernel; each plan's ``cuda``
+   logits held against the port's ``torch`` backend on the same plan
+   (1e-4); then the host costs the tuned path adds (the CSR digest pass and
+   the features hash of a quantized plan, on the input and a hidden layer).
 5. Kernel times at the main path's shapes (CUDA events around batches of
    back-to-back calls), beside the plain version's time, the bound and,
    for the SpMM, one ``torch.sparse.mm`` on the same sampled matrix; for
    the fused layer also the port's unfused pipeline (``ell_spmm`` +
-   ``torch.matmul`` + bias + ReLU) on the same operands.
+   ``torch.matmul`` + bias + ReLU) on the same operands; the blocked SpMM
+   on the tuned GCN BlockELL (natural layout, f32 and u8), beside
+   ``torch.sparse.mm`` on the CSR of the same live slots, ``ell_spmm`` on
+   the same live slots and ``ell_spmm`` at W=128 on the same graph.
 
 The last two lines of standard output are the ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -65,6 +83,8 @@ TIMING_BATCH = 20   # calls between one pair of CUDA events
 TIMING_REPS = 7     # batches; the median is kept
 PLAIN_REPS = 3      # single calls of a plain version; the median is kept
 PARITY_HIDDEN = (1, 5, 41)  # fused-layer widths H of phase 3
+#: per-block (strategy, width) cycle of the blocked parity cases
+BLOCK_CONFIGS = (("aes", 16), ("full", 0), ("sfs", 8), ("afs", 64))
 
 
 def log(obj) -> None:
@@ -171,9 +191,65 @@ def check_parity(P, device, errs) -> None:
             cases += 1
     check_wide_fused_layer(P, graphs["ragged70"], device, errs)
     check_dequantize(P, device, errs)
+    check_block_parity(P, graphs, device, errs)
     for kernel, e in errs.items():
         log({"phase": "parity", "kernel": kernel, "cases": len(e),
              "max_abs_err": max(e)})
+
+
+def check_block_parity(P, graphs, device, errs) -> None:
+    """The blocked SpMM kernel against its plain version: BlockELLs of the
+    parity graphs at block_rows 1, 256 and 4096 (a ragged last block),
+    one to three width buckets and a partial partition, f32 to 1e-5 and
+    u8/u16 to 1e-4, and a graph whose "full" block is over 1024 wide."""
+    torch, np = P.torch, P.np
+    cases = [(name, g, br) for name, g in graphs.items()
+             for br in (1, 256, 4096)]
+    rng = np.random.default_rng(29)
+    dst = np.concatenate([np.repeat(np.arange(300), 4), np.full(3000, 150)])
+    cases.append(("wide_full", P.csr_from_edges(
+        rng.integers(0, 300, dst.shape[0]), dst, 300,
+        rng.normal(size=dst.shape[0]).astype(np.float32), device=device), 16))
+    widest_full, calls = 0, 0
+    for gi, (name, g, br) in enumerate(cases):
+        nb = max(-(-g.num_rows // br), 1)
+        bell = P.sample_csr_to_block_ell(
+            g, [BLOCK_CONFIGS[b % len(BLOCK_CONFIGS)] for b in range(nb)], br)
+        widest_full = max([widest_full] + [
+            w for w, s in zip(bell.widths, bell.strategies) if s == "full"])
+        x = torch.from_numpy(np.random.default_rng(gi).normal(
+            size=(g.num_rows, (60, 33)[gi % 2])).astype(np.float32)).to(device)
+        operands = [("block_ell_spmm", x, None, 1e-5)]
+        for bits in (8, 16):
+            qf = P.quantize(x, bits)
+            operands.append(("block_ell_spmm_quant", qf.q,
+                             (qf.scale, qf.x_min), 1e-4))
+        parts = []
+        for k in (1, 2, 3):
+            p = P.partition_width_buckets(bell.widths, k)
+            if p not in parts:
+                parts.append(p)
+        if nb > 1:
+            parts.append(((max(bell.widths), tuple(range(0, nb, 2))),))
+        for buckets in parts:
+            for key, b, meta, tol in operands:
+                got = P.ops.block_ell_spmm(bell, b, quantized_meta=meta,
+                                           buckets=buckets)
+                want = P.block_mod.block_ell_spmm_plain(
+                    bell.val, bell.col, bell.live_w, b, bell.widths, br,
+                    g.num_rows, buckets, meta)
+                torch.testing.assert_close(
+                    got, want, rtol=tol, atol=tol,
+                    msg=lambda m, k=key, n=name, r=br: f"{k} {n} "
+                                                       f"block_rows={r}: {m}")
+                errs[key].append(float((got - want).abs().max())
+                                 if got.numel() else 0.0)
+                calls += 1
+    if widest_full <= 1024:
+        raise AssertionError(f"no full block above 1024 slots "
+                             f"(widest {widest_full})")
+    log({"phase": "parity_block", "graphs": len(cases), "calls": calls,
+         "widest_full_block": widest_full})
 
 
 def glorot(np, rng, rows, cols):
@@ -335,6 +411,143 @@ def main_path(P, ds, device) -> dict:
     return launches
 
 
+def _torch_twin(P, plan):
+    """The same plan on the port's eager ``torch`` backend."""
+    rp = P.dataclasses.replace
+    if plan.kind == "block":
+        return rp(plan, backend="torch")
+    return rp(plan, config=rp(plan.config, backend="torch"))
+
+
+def _plan_log(P, plan, adj) -> dict:
+    if plan.kind == "block":
+        bell = plan.bell
+        hist = {}
+        for w in bell.widths:
+            hist[w] = hist.get(w, 0) + 1
+        strategies = {}
+        for s in bell.strategies:
+            strategies[s] = strategies.get(s, 0) + 1
+        return {"kind": "block", "layout": plan.row_layout,
+                "blocks": bell.num_blocks, "widths": hist,
+                "strategies": strategies,
+                "buckets": [[w, len(ids)] for w, ids in plan.buckets],
+                "measured_bucket_us": list(plan.measured_bucket_us),
+                "slots": bell.total_slots, "live_slots": bell.live_edges(),
+                "nnz": adj.nnz, "quant_bits": None if plan.quantized is None
+                else plan.quantized.bits,
+                "measured_spmm_us": plan.measured_spmm_us}
+    return {"kind": "global", "config": plan.config.to_dict(),
+            "width": plan.ell.width, "nnz": adj.nnz,
+            "measured_spmm_us": plan.measured_spmm_us,
+            "measured_sample_us": plan.measured_sample_us}
+
+
+def tuned_path(P, ds, device):
+    """The tuned path on the card: ``evaluate(strategy="auto")`` at block
+    and graph granularity and with the fused GCN layers, each cold (it
+    tunes) and warm (a plan-cache hit); each plan's ``cuda`` logits against
+    the eager ``torch`` backend on the same plan.  Returns the launches of
+    the run (counts set to 0 at its start) and the GCN's natural f32
+    blocked plan."""
+    torch, np = P.torch, P.np
+    P.ops.reset_launch_counts()                   # the tuned path starts here
+    kept = None
+    for model in ("gcn", "graphsage"):
+        init_fn, _, adj_name = P.MODELS[model]
+        adj = getattr(ds, adj_name)
+        params = init_fn(np.random.default_rng(0), ds.features.shape[1],
+                         HIDDEN, ds.spec.num_classes, device=device)
+        # (granularity, layout, quantize_bits, fuse_layers)
+        cases = [("block", layout, bits, False)
+                 for layout in ("natural", "degree_sorted")
+                 for bits in (None, 8)]
+        cases.append(("graph", None, None, False))
+        if model == "gcn":
+            cases.append(("graph", None, None, True))
+        for gran, layout, bits, fuse in cases:
+            cache = P.PlanCache()
+            kw = dict(strategy="auto", granularity=gran, quantize_bits=bits,
+                      fuse_layers=fuse, device=device,
+                      tune_kwargs={"layout": layout} if layout else None)
+            walls, per_call = [], []
+            for _ in range(2):                    # cold (tunes), then warm
+                P.obs.reset()
+                before = P.ops.launch_counts()
+                t0 = time.perf_counter()
+                acc = P.evaluate(ds, model, params, plan_cache=cache, **kw)
+                walls.append(time.perf_counter() - t0)
+                after = P.ops.launch_counts()
+                per_call.append({k: after[k] - before[k] for k in after})
+                # the tuner's spans: the tuning itself on the cold call, the
+                # fingerprint and the cache lookup on the warm one
+                spans = [sp.duration_us
+                         for sp in P.obs.default_tracer().spans()
+                         if sp.name == "tune"]
+                if len(walls) == 1:
+                    tune_s = sum(spans) / 1e6
+                else:
+                    lookup_s = sum(spans) / 1e6
+            if gran == "block" and min(
+                    c["block_ell_spmm"] for c in per_call) < 1:
+                raise AssertionError(f"{model} blocked evaluate launched no "
+                                     f"block_ell_spmm: {per_call}")
+            plan, = cache.plans()
+            got = P.infer_logits(ds, model, params, plan_cache=cache, **kw)
+            twin = P.PlanCache()
+            twin.put(_torch_twin(P, plan))
+            want = P.infer_logits(ds, model, params, plan_cache=twin, **kw)
+            if got.shape != (adj.num_rows, ds.spec.num_classes) or \
+                    not bool(torch.isfinite(got).all()) or \
+                    not 0.0 <= acc <= 1.0:
+                raise AssertionError(f"{model} auto {gran}: bad logits "
+                                     f"{tuple(got.shape)} or accuracy {acc}")
+            torch.testing.assert_close(
+                got, want, rtol=1e-4, atol=1e-4,
+                msg=lambda m: f"{model} auto {gran} {layout} {bits} "
+                              f"fuse={fuse}: {m}")
+            log({"phase": "tuned_path", "model": model, "granularity": gran,
+                 "layout": layout, "quant_bits": bits, "fuse_layers": fuse,
+                 "accuracy": acc, "evaluate_wall_s": walls[1],
+                 "cold_evaluate_wall_s": walls[0], "tune_s": tune_s,
+                 "warm_tune_lookup_s": lookup_s,
+                 "launches_per_evaluate": per_call[1],
+                 "cold_launches": per_call[0], "plan": _plan_log(P, plan, adj),
+                 "vs_torch_max_abs_err": float((got - want).abs().max())})
+            if (model, gran, layout, bits) == ("gcn", "block", "natural",
+                                               None):
+                kept = plan
+    launches = P.ops.launch_counts()              # ... and ends here
+    log({"phase": "tuned_path_launches", "launches": launches})
+    host_costs(P, ds)
+    return launches, kept
+
+
+def host_costs(P, ds) -> None:
+    """What the tuned path adds on the host, each a device-to-host copy and
+    a blake2b pass: the CSR digest pass of a cold tune (on tensors of a new
+    identity, so the digest memo misses) and the features hash that guards
+    a quantized plan, on the input features and on a hidden layer."""
+    torch = P.torch
+    adj = ds.gcn_adj
+    fresh = P.CSR(adj.row_ptr.clone(), adj.col_ind.clone(), adj.val.clone(),
+                  adj.num_cols)
+    hidden = torch.randn((adj.num_rows, HIDDEN), device=adj.device)
+    out = {}
+    for key, fn in (("csr_digest_s", lambda: P.fingerprint(fresh)),
+                    ("features_hash_s",
+                     lambda: P.features_fingerprint(ds.features)),
+                    ("hidden_hash_s", lambda: P.features_fingerprint(hidden))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        out[key] = time.perf_counter() - t0
+    log({"phase": "tuned_path_host_costs", **out,
+         "csr_bytes": adj.nnz * 8 + (adj.num_rows + 1) * 4,
+         "features_bytes": ds.features.numel() * 4,
+         "hidden_bytes": hidden.numel() * 4})
+
+
 # ---------------------------------------------------------------------------
 # phase 5: timing helpers
 # ---------------------------------------------------------------------------
@@ -358,6 +571,20 @@ def time_ms(torch, fn, batch=TIMING_BATCH, reps=TIMING_REPS,
         end.synchronize()
         times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
+
+
+def host_ms(torch, fn, batch=TIMING_BATCH) -> float:
+    """Host time of one call, in ms, when ``batch`` calls are issued back to
+    back without waiting for the card: where it reaches :func:`time_ms`'s
+    reading, that reading is set by the host, not by the kernel."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(batch):
+        fn()
+    t = (time.perf_counter() - t0) / batch * 1e3
+    torch.cuda.synchronize()
+    return t
 
 
 def bound(nbytes: float, flops: float) -> tuple:
@@ -483,7 +710,7 @@ def kernel_times(P, ds, device, launches, errs, timer, plain_timer) -> list:
             "ms": timer(fn), "plain_ms": plain_timer(plain),
             "bound_ms": t_bound, "bound_by": by,
             "library_ms": None if library is None else timer(library),
-            **extra})
+            "host_ms": host_ms(torch, fn), **extra})
 
     ell_in = n_live * 8 + rows * 4                # live (val, col) + live_w
     entry("ell_spmm", lambda: ops.ell_spmm(ell, x, live),
@@ -520,6 +747,93 @@ def kernel_times(P, ds, device, launches, errs, timer, plain_timer) -> list:
     kernels.append(dequantize_entry(P, x, launches, errs, timer,
                                     plain_timer))
     return kernels
+
+
+def block_entry(P, ds, plan, launches, errs, timer, plain_timer,
+                ell_ms) -> dict:
+    """The blocked SpMM on the tuned GCN BlockELL (its buckets, F=128),
+    f32 and u8, beside its plain version, ``torch.sparse.mm`` on the CSR of
+    the same live slots, ``ell_spmm`` on the same live slots (the BlockELL
+    padded to one ELL of its widest width) and ``ell_spmm`` at W=128 on the
+    same graph."""
+    torch, ops = P.torch, P.ops
+    bell, x, buckets = plan.bell, ds.features, plan.buckets
+    rows, feat, br = bell.num_rows, x.shape[1], bell.block_rows
+    qf = P.quantize(x, 8)
+    meta = (qf.scale, qf.x_min)
+
+    def kernel(b=x, m=None):
+        return ops.block_ell_spmm(bell, b, quantized_meta=m, buckets=buckets)
+
+    def plain(b=x, m=None):
+        return P.block_mod.block_ell_spmm_plain(
+            bell.val, bell.col, bell.live_w, b, bell.widths, br, rows,
+            buckets, m)
+
+    got = kernel()
+    torch.testing.assert_close(got, plain(), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(kernel(qf.q, meta), plain(qf.q, meta),
+                               rtol=1e-4, atol=1e-4)
+    errs["block_ell_spmm"].append(float((got - plain()).abs().max()))
+    # the live slots as a CSR, rows in order, slots in order within a row
+    vals, cols = [], []
+    for b in range(bell.num_blocks):
+        v, c = bell.block_segment(b)
+        live = torch.arange(v.shape[1], device=x.device)[None, :] \
+            < bell.live_w[b * br:(b + 1) * br, None]
+        vals.append(v[live])
+        cols.append(c[live])
+    live_w = bell.live_w[:rows]
+    crow = torch.zeros(rows + 1, dtype=torch.int64, device=x.device)
+    crow[1:] = torch.cumsum(live_w.long(), 0)
+    col = torch.cat(cols)
+    a_sparse = torch.sparse_csr_tensor(crow, col.long(), torch.cat(vals),
+                                       (rows, bell.num_cols))
+    torch.testing.assert_close(torch.sparse.mm(a_sparse, x), got,
+                               rtol=1e-4, atol=1e-4)
+    # the same operand as one ELL at the plan's widest width (its extra
+    # slots dead), for ell_spmm on the same live slots
+    ev = torch.zeros((bell.padded_rows, bell.max_width), device=x.device)
+    ec = torch.zeros_like(ev, dtype=torch.int32)
+    for b in range(bell.num_blocks):
+        v, c = bell.block_segment(b)
+        ev[b * br:(b + 1) * br, :v.shape[1]] = v
+        ec[b * br:(b + 1) * br, :v.shape[1]] = c
+    same = P.ELL(ev[:rows], ec[:rows], bell.num_cols)
+    torch.testing.assert_close(ops.ell_spmm(same, x, live_w), got,
+                               rtol=1e-5, atol=1e-5)
+    n_live = int(live_w.sum())
+    uniq = int(torch.unique(col).numel())
+    # live (val, col) + live_w + the (id, offset, width) entry of each
+    # block + the named B rows + the output once
+    ell_in = n_live * 8 + bell.padded_rows * 4 + bell.num_blocks * 24
+    flops = 2.0 * n_live * feat
+    t_bound, by = bound(ell_in + uniq * feat * 4 + rows * feat * 4, flops)
+    return {
+        "name": "block_ell_spmm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/block_ell_spmm.cu",
+        "replaces": "src/repro/kernels/ell_spmm.py:246",
+        "launches": launches["block_ell_spmm"],
+        "max_abs_err": max(errs["block_ell_spmm"]
+                           + errs["block_ell_spmm_quant"]),
+        "ms": timer(kernel), "plain_ms": plain_timer(plain),
+        "bound_ms": t_bound, "bound_by": by,
+        "library_ms": timer(lambda: torch.sparse.mm(a_sparse, x)),
+        "host_ms": host_ms(torch, kernel),
+        "ell_spmm_same_operand_ms": timer(
+            lambda: ops.ell_spmm(same, x, live_w)),
+        "ell_spmm_same_operand_host_ms": host_ms(
+            torch, lambda: ops.ell_spmm(same, x, live_w)),
+        "ell_spmm_w128_ms": ell_ms,
+        "u8": {"ms": timer(lambda: kernel(qf.q, meta)),
+               "plain_ms": plain_timer(lambda: plain(qf.q, meta)),
+               "bound_ms": bound(ell_in + uniq * feat + rows * feat * 4,
+                                 flops)[0]},
+        "shape": {"rows": rows, "F": feat, "block_rows": br,
+                  "blocks": bell.num_blocks, "layout": plan.row_layout,
+                  "buckets": [[w, len(ids)] for w, ids in buckets],
+                  "slots": bell.total_slots, "live_slots": n_live,
+                  "distinct_b_rows": uniq, "max_width": bell.max_width}}
 
 
 def fused_layer_entry(P, ds, ell, live, launches, errs, timer, plain_timer,
@@ -622,21 +936,29 @@ def dequantize_entry(P, x, launches, errs, timer, plain_timer) -> dict:
 def port():
     """The port's modules, imported from ``src/`` next to this script."""
     sys.path.insert(0, str(SRC))
+    import dataclasses
+
     import numpy as np
     import torch
 
+    from repro_torch import obs
     from repro_torch.core.aes_spmm import sample
-    from repro_torch.core.graph import csr_from_edges, ell_live_widths
+    from repro_torch.core.graph import (CSR, ELL, csr_from_edges,
+                                        ell_live_widths,
+                                        partition_width_buckets)
     from repro_torch.core.quantization import dequantize, quantize
+    from repro_torch.core.sampling import sample_csr_to_block_ell
     from repro_torch.exec import PlanExecutor
     from repro_torch.gnn import evaluate, infer_logits, make_dataset
     from repro_torch.gnn.models import MODELS
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import aes_sample as aes_mod
+    from repro_torch.kernels import block_ell_spmm as block_mod
     from repro_torch.kernels import dequant as dequant_mod
     from repro_torch.kernels import ell_spmm as ell_mod
     from repro_torch.kernels import fused_layer as layer_mod
     from repro_torch.kernels import fused_spmm as fused_mod
+    from repro_torch.tuning import PlanCache, features_fingerprint, fingerprint
 
     return SimpleNamespace(**{k: v for k, v in locals().items()})
 
@@ -675,7 +997,8 @@ def main() -> None:
     # -- 3. kernel parity on small graphs -----------------------------------
     errs = {"aes_sample": [], "ell_spmm": [], "fused_aes_spmm": [],
             "ell_spmm_u8": [], "fused_layer": [], "fused_layer_quant": [],
-            "dequantize": []}
+            "dequantize": [], "block_ell_spmm": [],
+            "block_ell_spmm_quant": []}
     check_parity(P, device, errs)
     torch.cuda.synchronize()
 
@@ -693,17 +1016,27 @@ def main() -> None:
     launches = main_path(P, ds, device)
     torch.cuda.synchronize()
     for name, n in launches.items():
-        if n <= 0:
+        if n <= 0 and name != "block_ell_spmm":
             raise AssertionError(f"kernel {name} was not launched on the "
                                  "main path")
+    tuned, plan = tuned_path(P, ds, device)
+    torch.cuda.synchronize()
+    for name in ("block_ell_spmm", "fused_layer"):
+        if tuned[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 "tuned path")
+    launches = {k: n + tuned[k] for k, n in launches.items()}
 
     errs["fused_layer_int8"] = []
     int8_layers(P, ds, device, errs)
 
     # -- 5. kernel times at the main path's shapes --------------------------
-    kernels = kernel_times(
-        P, ds, device, launches, errs, lambda fn: time_ms(torch, fn),
-        lambda fn: time_ms(torch, fn, batch=1, reps=PLAIN_REPS, warmup=1))
+    timer = functools.partial(time_ms, torch)
+    plain_timer = functools.partial(time_ms, torch, batch=1, reps=PLAIN_REPS,
+                                    warmup=1)
+    kernels = kernel_times(P, ds, device, launches, errs, timer, plain_timer)
+    kernels.append(block_entry(P, ds, plan, launches, errs, timer,
+                               plain_timer, kernels[0]["ms"]))
     torch.cuda.synchronize()
     log({"phase": "done", "wall_s": time.perf_counter() - t_start})
 

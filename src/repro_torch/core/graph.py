@@ -1,5 +1,8 @@
 """Graph containers: CSR (paper §2.2, Fig. 1), the fixed-width ELL layout
-AES sampling produces, and the GNN normalizations the models need.
+AES sampling produces, the mixed-width BlockELL layout the per-row-block
+tuner stitches, and the GNN normalizations the models need.  Also the
+row reorder of the degree-sorted layout and the per-row-block content
+digests the plan cache is keyed by.
 
 Dtypes follow the reference package: int32 ``row_ptr``/``col_ind``/``col``
 and float32 values.  The builders run on the host in numpy (the same code
@@ -9,12 +12,20 @@ the device of their input; :func:`csr_from_edges` takes host arrays and a
 """
 from __future__ import annotations
 
+import hashlib
+import weakref
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+
+#: Row granularity of the content-digest blocks the plan-cache fingerprint
+#: is assembled from (``csr_block_digests``).  Fixed, independent of any
+#: plan's ``block_rows``, so the fingerprint of a CSR is a pure function of
+#: its content (and equal to the reference package's for the same arrays).
+DIGEST_BLOCK_ROWS = 4096
 
 
 def _np(t) -> np.ndarray:
@@ -84,6 +95,130 @@ class ELL(NamedTuple):
 
     def to(self, device) -> "ELL":
         return ELL(self.val.to(device), self.col.to(device), self.num_cols)
+
+
+class BlockELL(NamedTuple):
+    """Mixed-width ELL: one (strategy, width) per fixed-size row block.
+
+    The rows are partitioned into ``num_blocks = ceil(num_rows /
+    block_rows)`` blocks of ``block_rows`` rows (the last block padded with
+    empty rows).  Block ``b`` is an ELL segment of shape
+    ``[block_rows, widths[b]]`` stored flattened row-major inside the
+    shared 1-D ``val``/``col``; its slots start at ``slot_offsets()[b] =
+    block_rows * sum(widths[:b])``.
+
+    Invariants (those of the reference package, so plans keep one layout):
+      * ``widths`` / ``strategies`` are Python tuples of length
+        ``num_blocks``; widths are >= 1;
+      * dead slots carry ``val == 0`` and ``col == 0``; live slots form a
+        contiguous prefix of each row, of length ``live_w[row]``;
+      * ``live_w`` is int32[num_blocks * block_rows] (padded rows 0);
+        ``num_rows`` is the logical row count;
+      * ``val``/``col`` carry ``max_width`` zeroed elements past
+        ``total_slots`` (the stitcher appends them; the Hopper kernel masks
+        and never reads them).
+    """
+
+    val: torch.Tensor       # f32[total_slots + max_width]
+    col: torch.Tensor       # int32[total_slots + max_width]
+    live_w: torch.Tensor    # int32[num_blocks * block_rows]
+    widths: tuple
+    strategies: tuple
+    block_rows: int
+    num_rows: int
+    num_cols: int
+
+    @property
+    def num_blocks(self) -> int:
+        return len(self.widths)
+
+    @property
+    def padded_rows(self) -> int:
+        return self.num_blocks * self.block_rows
+
+    @property
+    def total_slots(self) -> int:
+        return self.block_rows * sum(self.widths)
+
+    @property
+    def max_width(self) -> int:
+        return max(self.widths) if self.widths else 1
+
+    def slot_offsets(self) -> tuple:
+        """Slot offset of each block segment inside ``val``/``col``."""
+        offs, acc = [], 0
+        for w in self.widths:
+            offs.append(acc)
+            acc += self.block_rows * w
+        return tuple(offs)
+
+    def block_segment(self, b: int) -> tuple:
+        """Block ``b`` as 2-D ELL arrays ``(val[block_rows, widths[b]],
+        col[block_rows, widths[b]])`` — views of the flat storage."""
+        off = self.slot_offsets()[b]
+        w = self.widths[b]
+        n = self.block_rows * w
+        return (self.val[off:off + n].view(self.block_rows, w),
+                self.col[off:off + n].view(self.block_rows, w))
+
+    def live_edges(self) -> int:
+        """Total live slots over logical rows (one host read)."""
+        return int(self.live_w[:self.num_rows].sum())
+
+
+def partition_width_buckets(widths, max_buckets: int = 3) -> tuple:
+    """Partition BlockELL blocks into <= ``max_buckets`` width buckets.
+
+    Groups the distinct widths into at most ``max_buckets`` contiguous (in
+    sorted-width order) groups minimizing ``sum_b (bucket_width -
+    widths[b])`` over blocks — the reference package's exact DP, so the
+    same widths give the same tuple.  The Hopper kernel launches once per
+    bucket; the tuner times buckets one at a time.
+
+    Returns ``((bucket_width, block_ids), ...)`` ascending by width, the
+    ``block_ids`` of all buckets a permutation of ``range(len(widths))``.
+    """
+    widths = tuple(int(w) for w in widths)
+    if not widths:
+        return ()
+    max_buckets = max(int(max_buckets), 1)
+    uniq = sorted(set(widths))
+    counts = [sum(1 for w in widths if w == u) for u in uniq]
+    m = len(uniq)
+    k = min(max_buckets, m)
+
+    # cost[i][j]: over-read of one bucket covering uniq[i..j] (width uniq[j])
+    cost = [[0] * m for _ in range(m)]
+    for i in range(m):
+        for j in range(i, m):
+            cost[i][j] = sum(counts[t] * (uniq[j] - uniq[t])
+                             for t in range(i, j + 1))
+    # best[i][g]: min cost splitting uniq[i:] into exactly g buckets
+    inf = float("inf")
+    best = [[inf] * (k + 1) for _ in range(m + 1)]
+    cut = [[m] * (k + 1) for _ in range(m + 1)]
+    best[m][0] = 0.0
+    for i in range(m - 1, -1, -1):
+        for g in range(1, k + 1):
+            for j in range(i, m):
+                c = cost[i][j] + best[j + 1][g - 1]
+                if c < best[i][g]:
+                    best[i][g], cut[i][g] = c, j
+    g = min(range(1, k + 1), key=lambda gg: (best[0][gg], gg))
+    bounds, i = [], 0
+    while i < m:
+        j = cut[i][g]
+        bounds.append(uniq[j])
+        i, g = j + 1, g - 1
+
+    buckets = []
+    lo = -1
+    for hi in bounds:
+        ids = tuple(b for b, w in enumerate(widths) if lo < w <= hi)
+        if ids:
+            buckets.append((max(widths[b] for b in ids), ids))
+        lo = hi
+    return tuple(buckets)
 
 
 def ell_live_widths(val: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
@@ -189,3 +324,112 @@ def pad_csr_to_ell(csr: CSR, width: int | None = None) -> ELL:
 
     val, col = sample_csr_to_ell_sfs(csr.row_ptr, csr.col_ind, csr.val, w)
     return ELL(val, col, csr.num_cols)
+
+
+def permute_csr_rows(csr: CSR, perm) -> CSR:
+    """Reorder a CSR's rows by ``perm`` (row ``r`` of the result is row
+    ``perm[r]`` of the input); columns are untouched.  Host-side numpy
+    rebuild, one device crossing for the result; per-row edge order is
+    kept, so row ``r`` of the result is byte-identical to row ``perm[r]``.
+    """
+    perm = np.asarray(perm, np.int64)
+    rp = _np(csr.row_ptr).astype(np.int64)
+    nnz = rp[1:] - rp[:-1]
+    counts = nnz[perm]
+    new_rp = np.zeros(csr.num_rows + 1, np.int64)
+    np.cumsum(counts, out=new_rp[1:])
+    idx = (np.repeat(rp[perm] - new_rp[:-1], counts)
+           + np.arange(int(new_rp[-1]), dtype=np.int64))
+    return _csr_on(new_rp.astype(np.int32), _np(csr.col_ind)[idx],
+                   _np(csr.val)[idx], csr.num_cols, csr.device)
+
+
+def degree_sort_permutation(csr: CSR):
+    """Stable nnz-descending row permutation (the degree-sorted layout):
+    hub rows pack into a few wide blocks, the sparse tail into narrow ones.
+
+    Returns ``(perm, inv_perm, permuted_csr)`` with numpy int64 ``perm``
+    (natural row id at permuted position ``p``) and ``inv_perm`` (permuted
+    position of natural row ``r``: ``out[inv_perm]`` restores natural
+    order), and ``permuted_csr == permute_csr_rows(csr, perm)``.
+    """
+    rp = _np(csr.row_ptr).astype(np.int64)
+    nnz = rp[1:] - rp[:-1]
+    perm = np.argsort(-nnz, kind="stable").astype(np.int64)
+    inv_perm = np.empty_like(perm)
+    inv_perm[perm] = np.arange(perm.size, dtype=np.int64)
+    return perm, inv_perm, permute_csr_rows(csr, perm)
+
+
+def num_digest_blocks(num_rows: int,
+                      digest_rows: int = DIGEST_BLOCK_ROWS) -> int:
+    """Digest-block count for a row count (>= 1, even for 0 rows)."""
+    return max(-(-int(num_rows) // int(digest_rows)), 1)
+
+
+# Identity-keyed digest memo.  CSR tensors are never mutated in place by
+# this package, so a digest computed once for a (row_ptr, col_ind, val)
+# triple stays valid while the tensors live; entries evict when col_ind is
+# garbage collected (weakref.finalize), the cap is a backstop.  Only
+# digests computed from the data are stored.
+_DIGEST_MEMO: dict = {}
+_DIGEST_MEMO_CAP = 512
+
+
+def _digest_memo(csr: CSR) -> dict:
+    key = (id(csr.row_ptr), id(csr.col_ind), id(csr.val))
+    entry = _DIGEST_MEMO.get(key)
+    if entry is None:
+        if len(_DIGEST_MEMO) >= _DIGEST_MEMO_CAP:
+            _DIGEST_MEMO.clear()
+        entry = _DIGEST_MEMO[key] = {}
+        weakref.finalize(csr.col_ind, _DIGEST_MEMO.pop, key, None)
+    return entry
+
+
+def csr_block_digests(csr: CSR, digest_rows: int = DIGEST_BLOCK_ROWS,
+                      blocks=None) -> list:
+    """Content digests of fixed-granularity row blocks of a CSR.
+
+    Digest block ``b`` covers rows ``[b * digest_rows, (b+1) *
+    digest_rows)`` and hashes the block's locally normalized row pointers
+    (int64 bytes) and its ``col_ind``/``val`` slices — the reference
+    package's bytes, so the same CSR gives the same digests in both.  The
+    hash runs on the host: on the card this is one device-to-host copy of
+    the CSR per tensor triple (memoized by identity).
+
+    Returns a list of 32-hex-char digests aligned with ``blocks`` (default:
+    all ``num_digest_blocks`` blocks).
+    """
+    n = csr.num_rows
+    if blocks is None:
+        blocks = range(num_digest_blocks(n, digest_rows))
+    blocks = [int(b) for b in blocks]
+    memo = _digest_memo(csr)
+    todo = [b for b in blocks if (digest_rows, b) not in memo]
+    if todo:
+        rp = _np(csr.row_ptr).astype(np.int64)
+        ci = np.ascontiguousarray(_np(csr.col_ind))
+        v = np.ascontiguousarray(_np(csr.val))
+        for b in todo:
+            r0 = min(b * digest_rows, n)
+            r1 = min(r0 + digest_rows, n)
+            lo, hi = int(rp[r0]), int(rp[r1])
+            h = hashlib.blake2b(digest_size=16)
+            h.update(np.ascontiguousarray(rp[r0:r1 + 1] - rp[r0]).tobytes())
+            h.update(ci[lo:hi].tobytes())
+            h.update(v[lo:hi].tobytes())
+            memo[(digest_rows, b)] = h.hexdigest()
+    return [memo[(digest_rows, b)] for b in blocks]
+
+
+def combine_block_digests(digests, num_rows: int, num_cols: int,
+                          digest_rows: int = DIGEST_BLOCK_ROWS) -> str:
+    """Fold per-block digests into one CSR content fingerprint (the
+    plan-cache key, ``repro_torch.tuning.features.fingerprint``)."""
+    h = hashlib.blake2b(digest_size=16)
+    h.update(np.asarray([num_rows, num_cols, digest_rows],
+                        np.int64).tobytes())
+    for d in digests:
+        h.update(bytes.fromhex(d))
+    return h.hexdigest()

@@ -56,6 +56,18 @@ def quantize(x: torch.Tensor, bits: int = 8) -> QuantizedFeatures:
                              x_max=x_max, bits=bits)
 
 
+def as_quantized(features, bits: int) -> QuantizedFeatures:
+    """``features`` as a ``bits``-wide :class:`QuantizedFeatures`: a
+    matching-width operand passes through untouched, a mismatched one is
+    re-quantized from its Eq. 2 reconstruction, a dense matrix is
+    quantized (Eq. 1)."""
+    if isinstance(features, QuantizedFeatures):
+        if features.bits == bits:
+            return features
+        features = dequantize(features)
+    return quantize(features, bits)
+
+
 def dequantize(qf: QuantizedFeatures) -> torch.Tensor:
     """Eq. 2: ``q * scale + x_min`` as f32."""
     return qf.q.to(torch.float32) * qf.scale + qf.x_min

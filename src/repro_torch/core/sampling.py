@@ -26,6 +26,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import obs
+
 PRIME_NUM = 1429  # paper §3.3: "prime_num is set to 1429"
 
 # Strategy table thresholds on R = row_nnz / W (paper Table 1), as integer
@@ -165,6 +167,105 @@ STRATEGIES = {
     "afs": sample_csr_to_ell_afs,
     "sfs": sample_csr_to_ell_sfs,
 }
+
+
+# ----------------------------------------------------------------------------
+# Blocked sampling: one (strategy, width) per fixed-size row block.
+# ----------------------------------------------------------------------------
+
+def sample_block_segment(csr, row_nnz_host, b: int, strat: str, width: int,
+                         block_rows: int):
+    """Sample one row block of a CSR into a padded ELL segment.
+
+    Each sampler sees the global ``col_ind``/``val`` through the block's
+    slice of ``row_ptr``, so only the block's own rows matter.
+
+    Args:
+      csr: the source matrix.
+      row_nnz_host: numpy per-row nnz (hoisted by the caller).
+      b: block index.
+      strat: key of :data:`STRATEGIES` or ``"full"`` (pads to the block's
+        own max row nnz; ``width`` is then ignored).
+      width: requested ELL width (floored to 1).
+      block_rows: rows per block; a short last block is zero-padded.
+
+    Returns ``(val, col, live_w, width, strategy)`` with ``val``/``col`` of
+    shape ``[block_rows, width]`` and ``live_w`` int32[block_rows].
+    """
+    from repro_torch.core.graph import ell_live_widths
+
+    num_rows = csr.num_rows
+    r0 = b * block_rows
+    r1 = min(r0 + block_rows, num_rows)
+    blk_nnz = row_nnz_host[r0:r1]
+    if strat == "full":
+        width = int(blk_nnz.max()) if len(blk_nnz) else 0
+        fn = sample_csr_to_ell_sfs           # first-W == all when W >= max nnz
+    else:
+        fn = STRATEGIES[strat]
+    width = max(int(width), 1)
+    if csr.nnz == 0 or r1 <= r0:
+        v, c = _all_dead(csr.row_ptr[r0:r1 + 1], csr.val, width)
+    else:
+        v, c = fn(csr.row_ptr[r0:r1 + 1], csr.col_ind, csr.val, width)
+    pad = block_rows - (r1 - r0)
+    if pad:
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+        c = torch.nn.functional.pad(c, (0, 0, 0, pad))
+    return v, c, ell_live_widths(v, c), width, strat
+
+
+def sample_csr_to_block_ell(csr, configs, block_rows: int):
+    """Stitch a mixed-width :class:`~repro_torch.core.graph.BlockELL`.
+
+    Args:
+      csr: the source matrix.
+      configs: one ``(strategy, width)`` per row block
+        (``ceil(num_rows / block_rows)`` entries, at least one);
+        ``"full"`` pads the block to its own max row nnz.
+      block_rows: rows per block; the last block is padded with empty rows.
+
+    Returns a ``BlockELL`` whose block ``b`` is ``STRATEGIES[s]`` run on
+    the rows of the block at width ``configs[b][1]``, with the reference
+    package's trailing ``max_width`` zero pad, so plans keep its layout.
+    """
+    from repro_torch.core.graph import BlockELL, _np
+
+    num_rows = csr.num_rows
+    num_blocks = max(-(-num_rows // block_rows), 1)
+    if len(configs) != num_blocks:
+        raise ValueError(
+            f"expected {num_blocks} block configs for {num_rows} rows at "
+            f"block_rows={block_rows}, got {len(configs)}")
+
+    rp = _np(csr.row_ptr)
+    row_nnz_host = rp[1:] - rp[:-1]
+    vals, cols, lives, widths, strategies = [], [], [], [], []
+    for b, (strat, width) in enumerate(configs):
+        v, c, live, w, s = sample_block_segment(
+            csr, row_nnz_host, b, strat, width, block_rows)
+        lives.append(live)
+        vals.append(v.reshape(-1))
+        cols.append(c.reshape(-1))
+        widths.append(w)
+        strategies.append(s)
+
+    max_w = max(widths)
+    vals.append(torch.zeros(max_w, dtype=csr.val.dtype, device=csr.device))
+    cols.append(torch.zeros(max_w, dtype=torch.int32, device=csr.device))
+    bell = BlockELL(
+        val=torch.cat(vals), col=torch.cat(cols), live_w=torch.cat(lives),
+        widths=tuple(widths), strategies=tuple(strategies),
+        block_rows=block_rows, num_rows=num_rows, num_cols=csr.num_cols)
+    if obs.enabled():
+        # edges the stitched operand kept vs. discarded, and the slots the
+        # per-block widths allocated (tightness against nnz)
+        kept = bell.live_edges()
+        obs.count("sampler.block_calls")
+        obs.count("sampler.edges_kept", kept)
+        obs.count("sampler.edges_dropped", max(int(csr.nnz) - kept, 0))
+        obs.count("sampler.block_slots", int(bell.col.numel()) - max_w)
+    return bell
 
 
 def sampling_rate(row_ptr, sh_width: int) -> float:

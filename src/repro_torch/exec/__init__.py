@@ -1,4 +1,4 @@
 """SpMM execution dispatch (see :mod:`repro_torch.exec.executor`)."""
-from repro_torch.exec.executor import PlanExecutor
+from repro_torch.exec.executor import PlanExecutor, default_executor
 
-__all__ = ["PlanExecutor"]
+__all__ = ["PlanExecutor", "default_executor"]

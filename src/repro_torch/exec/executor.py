@@ -1,11 +1,18 @@
 """PlanExecutor: the owner of SpMM execution dispatch.
 
-The port carries :meth:`PlanExecutor.run_ell`, the global-ELL path (the
-CUDA kernel or the eager rowloop, float or fused-dequant), and
-:meth:`PlanExecutor.run_fused_layer`, a whole GNN layer (gather +
-dequant + SpMM + dense transform + activation) in one kernel launch, with
-the range guard and the obs counters of the reference package.
-``run_block`` and ``run_plan`` come with the BlockELL/tuner slice.
+The port carries the reference package's four paths, with its guards and
+obs counters:
+
+  * :meth:`PlanExecutor.run_ell` — the global-ELL path (the CUDA kernel
+    or the eager rowloop, float or fused-dequant);
+  * :meth:`PlanExecutor.run_block` — the BlockELL path (the blocked
+    kernel, one launch per width bucket, or the eager blocked rowloop);
+  * :meth:`PlanExecutor.run_plan` — plan-kind dispatch plus the
+    features-hash guard that keeps a cached quantized operand honest: it
+    serves only the exact matrix it encodes, any other operand takes the
+    float path;
+  * :meth:`PlanExecutor.run_fused_layer` — a whole GNN layer (gather +
+    dequant + SpMM + dense transform + activation) in one kernel launch.
 
 Range guard (``requant_guard=True``): a quantized operand stands for
 exactly the matrix it was encoded from, so the operand actually passed is
@@ -82,6 +89,87 @@ class PlanExecutor:
             x = dequantize(quantized) if quantized is not None else features
             return ref.ell_spmm_rowloop(ell.val, ell.col, x)
 
+    def run_block(self, bell, features, *, backend: str = "torch",
+                  quantized: Optional[QuantizedFeatures] = None,
+                  buckets=None, inv_perm=None):
+        """Width-bucketed SpMM over a BlockELL operand.
+
+        Args:
+          bell: the stitched ``core.graph.BlockELL``.
+          features: dense operand (may be ``None`` when ``quantized``
+            serves — plan callers enforce that pairing).
+          backend: "cuda" (blocked kernel, one launch per width bucket)
+            or "torch" (eager blocked rowloop).
+          quantized: pre-quantized operand (already guard-verified).
+          buckets: tuned width-bucket partition; ``None``/empty lets the
+            kernel wrapper compute one.
+          inv_perm: output row gather restoring natural order when the
+            BlockELL was stitched over a row-permuted CSR (degree-sorted
+            plans): row ``r`` of the result is permuted row
+            ``inv_perm[r]``.
+        """
+        from repro_torch.kernels import ops, ref
+
+        if backend not in ("torch", "cuda"):
+            raise ValueError(f"run_block backend must be 'torch' or 'cuda', "
+                             f"not {backend!r}")
+        with obs.trace("exec.run_block", backend=backend,
+                       dtype=_dtype_tag(quantized)):
+            if obs.enabled():
+                obs.count(
+                    f"executor.run_block.{backend}.{_dtype_tag(quantized)}")
+            if backend == "cuda":
+                if quantized is not None:
+                    out = ops.block_ell_spmm(
+                        bell, quantized.q,
+                        quantized_meta=(quantized.scale, quantized.x_min),
+                        buckets=buckets or None)
+                else:
+                    out = ops.block_ell_spmm(bell, features,
+                                             buckets=buckets or None)
+            elif quantized is not None:
+                out = ref.quant_block_ell_spmm(bell, quantized)
+            else:
+                out = ref.block_ell_spmm(bell, features)
+            return out if inv_perm is None else out[inv_perm]
+
+    def run_plan(self, plan, features, *, assume_tuned: bool = False):
+        """Execute a tuned plan (global or blocked) on ``features``.
+
+        Owns the offline-quantization hash guard: a plan's cached quantized
+        operand serves only the exact matrix it encodes (content hash; on
+        the card one device-to-host copy of ``features`` per call); any
+        other operand takes the float path.  ``assume_tuned=True`` skips
+        the hash for callers that verified the match once, and permits
+        ``features=None`` on a quantized blocked plan.
+        """
+        from repro_torch.tuning.plan_cache import features_fingerprint
+
+        if isinstance(features, QuantizedFeatures):
+            features = dequantize(features)
+        q = plan.quantized
+        if q is not None and not assume_tuned \
+                and features_fingerprint(features) != plan.features_fp:
+            q = None
+            obs.count("executor.plan_hash_guard_miss")
+        if plan.kind == "block":
+            if q is None and features is None:
+                raise ValueError("features=None requires a quantized plan "
+                                 "and assume_tuned=True")
+            with obs.trace("exec.run_plan", kind="block",
+                           backend=plan.backend, dtype=_dtype_tag(q)):
+                obs.count("executor.run_plan.block")
+                return self.run_block(plan.bell, features,
+                                      backend=plan.backend, quantized=q,
+                                      buckets=plan.buckets,
+                                      inv_perm=plan.inv_perm())
+        with obs.trace("exec.run_plan", kind="global",
+                       strategy=plan.config.strategy,
+                       backend=plan.config.backend, dtype=_dtype_tag(q)):
+            obs.count(f"executor.run_plan.global.{plan.config.strategy}")
+            return self.run_ell(plan.ell, features,
+                                backend=plan.config.backend, quantized=q)
+
     def run_fused_layer(self, ell, features, w, bias, *, relu: bool = True,
                         backend: str = "torch",
                         quantized: Optional[QuantizedFeatures] = None,
@@ -128,3 +216,11 @@ class PlanExecutor:
                 out = ref.fused_layer(ell.val, ell.col, x, w, bias,
                                       relu=relu)
             return out if inv_perm is None else out[inv_perm]
+
+
+_DEFAULT = PlanExecutor()
+
+
+def default_executor() -> PlanExecutor:
+    """The process-wide executor (stateless, so one instance serves all)."""
+    return _DEFAULT

@@ -25,7 +25,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-KERNELS = ("ell_spmm", "aes_sample", "fused_spmm", "fused_layer", "dequant")
+KERNELS = ("ell_spmm", "aes_sample", "fused_spmm", "fused_layer", "dequant",
+           "block_ell_spmm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

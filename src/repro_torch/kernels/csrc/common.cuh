@@ -98,9 +98,15 @@ constexpr int kGatherFeatPerPass = 32 * kGatherFeatPerLane;
 // (val, col) at once, one per lane, and broadcasts them with shuffles; each
 // lane keeps kGatherFeatPerLane accumulators, so one pass covers 128
 // features.  Slots are summed in slot order with an f32 accumulator, as the
-// plain version does (nvcc contracts a*b+c into FMA, so the sum agrees to
-// float tolerance, not bit for bit).  dst may be global or shared memory.
-template <typename T>
+// plain version does.  By default nvcc contracts a*b+c into FMA, so the sum
+// agrees to float tolerance, not bit for bit; kRoundTwice rounds after the
+// product and after the sum as the plain version does, which makes the sum
+// bit-identical to it however long the row.  The blocked SpMM needs that:
+// its "full" rows sum thousands of slots, where FMA drifts past 1e-5 of
+// the plain version.  The others keep FMA: rounding twice made ell_spmm
+// and the fused layer 4-10% slower on the reddit main path (PERF.md).  dst
+// may be global or shared memory.
+template <typename T, bool kRoundTwice = false>
 __device__ __forceinline__ void warp_gather_row(
     const float* __restrict__ vrow, const int* __restrict__ crow, int live,
     const T* __restrict__ b, int feat, float scale, float x_min, float* dst,
@@ -125,7 +131,14 @@ __device__ __forceinline__ void warp_gather_row(
 #pragma unroll
         for (int i = 0; i < kGatherFeatPerLane; ++i) {
           const int f = f0 + i * 32 + lane;
-          if (f < feat) acc[i] += v * load_feature(brow, f, scale, x_min);
+          if (f < feat) {
+            const float x = load_feature(brow, f, scale, x_min);
+            if constexpr (kRoundTwice) {
+              acc[i] = __fadd_rn(acc[i], __fmul_rn(v, x));
+            } else {
+              acc[i] += v * x;
+            }
+          }
         }
       }
     }

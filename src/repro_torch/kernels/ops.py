@@ -7,8 +7,10 @@ kernel's plain version, CUDA tensors the kernel.
 """
 from __future__ import annotations
 
-from repro_torch.core.graph import CSR, ELL, ell_live_widths
+from repro_torch.core.graph import (CSR, ELL, BlockELL, ell_live_widths,
+                                    partition_width_buckets)
 from repro_torch.kernels import aes_sample as _sample_mod
+from repro_torch.kernels import block_ell_spmm as _block_mod
 from repro_torch.kernels import dequant as _dequant_mod
 from repro_torch.kernels import ell_spmm as _ell_mod
 from repro_torch.kernels import fused_layer as _layer_mod
@@ -21,6 +23,7 @@ KERNELS = {
     "fused_aes_spmm": _fused_mod.fused_aes_spmm,
     "fused_layer": _layer_mod.fused_layer,
     "dequantize": _dequant_mod.dequantize,
+    "block_ell_spmm": _block_mod.block_ell_spmm,
 }
 
 # The reference package's bound on a fused layer's F and H (there the
@@ -59,6 +62,31 @@ def ell_spmm(ell: ELL, b, live_w=None, *, quantized_meta=None):
     return _ell_mod.ell_spmm(ell.val.contiguous(), ell.col.contiguous(),
                              live_w.contiguous(), b.contiguous(),
                              quantized_meta=quantized_meta)
+
+
+def block_ell_spmm(bell: BlockELL, b, *, quantized_meta=None, buckets=None):
+    """Blocked SpMM over a mixed-width BlockELL, one kernel launch per
+    width bucket.
+
+    Args:
+      bell: the stitched operand (see ``core.graph.BlockELL``).
+      b: dense operand ``[num_nodes, feat]`` — f32, or uint8/uint16 when
+        ``quantized_meta`` is given.
+      quantized_meta: ``(scale, x_min)`` enables the fused-dequant gather.
+      buckets: width-bucket partition ``((bucket_w, block_ids), ...)``
+        (``core.graph.partition_width_buckets``; a tuned ``BlockedPlan``
+        passes its own).  Default: computed from ``bell.widths``.  A
+        partial partition is allowed — the rows of the blocks it omits
+        stay zero — which the tuner uses to time one bucket alone.
+
+    Returns f32[bell.num_rows, feat].
+    """
+    if buckets is None:
+        buckets = partition_width_buckets(bell.widths)
+    return _block_mod.block_ell_spmm(
+        bell.val, bell.col, bell.live_w, b.contiguous(), widths=bell.widths,
+        block_rows=bell.block_rows, num_rows=bell.num_rows, buckets=buckets,
+        quantized_meta=quantized_meta)
 
 
 def aes_sample(csr: CSR, sh_width: int) -> ELL:

@@ -72,3 +72,30 @@ def aes_spmm(row_ptr, col_ind, val, b, sh_width: int, bits=None,
     if bits is not None:
         b = dequantize(b, x_min, x_max, bits)
     return ell_spmm_rowloop(ell_val, ell_col, b)
+
+
+def block_ell_spmm(bell, b):
+    """Blocked SpMM as separate ops: each block segment through
+    :func:`ell_spmm_rowloop`, outputs stitched, padded rows dropped.
+
+    Args:
+      bell: a ``repro_torch.core.graph.BlockELL``.
+      b: dense operand f32[num_cols_of_graph, feat].
+
+    Returns f32[bell.num_rows, feat].
+    """
+    outs = [ell_spmm_rowloop(*bell.block_segment(i), b)
+            for i in range(bell.num_blocks)]
+    return torch.cat(outs, dim=0)[:bell.num_rows]
+
+
+def quant_block_ell_spmm(bell, qf):
+    """Dequantize-then-SpMM version of the quantized blocked kernel:
+    materialize Eq. 2, then :func:`block_ell_spmm`.
+
+    Args:
+      bell: a ``repro_torch.core.graph.BlockELL``.
+      qf: a ``repro_torch.core.quantization.QuantizedFeatures``.
+    """
+    x = dequantize(qf.q, qf.x_min, qf.x_max, qf.bits)
+    return block_ell_spmm(bell, x)

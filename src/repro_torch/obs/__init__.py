@@ -2,8 +2,9 @@
 
 The port's own copy of the part of the reference package's ``obs`` that
 this package calls, with the same span and counter names
-(``gnn.evaluate``, ``exec.run_ell``, ``sampler.*``,
-``executor.run_ell.<backend>.<dtype>``, ``quant.requant_*``)::
+(``gnn.evaluate``, ``exec.run_ell``, ``exec.run_block``, ``exec.run_plan``,
+``tune``, ``plan_cache.*``, ``sampler.*``,
+``executor.run_{ell,block}.<backend>.<dtype>``, ``quant.requant_*``)::
 
     from repro_torch import obs
 
@@ -18,17 +19,28 @@ from __future__ import annotations
 from repro_torch.obs import trace as _trace_mod
 from repro_torch.obs.metrics import MetricsRegistry, default_registry
 from repro_torch.obs.trace import (NOOP_SPAN, Span, Tracer, default_tracer,
-                                   enabled, set_enabled, trace)
+                                   enabled, set_enabled, trace, traced)
 
 __all__ = ["MetricsRegistry", "NOOP_SPAN", "Span", "Tracer", "count",
-           "default_registry", "default_tracer", "enabled", "reset",
-           "set_enabled", "trace"]
+           "decision", "default_registry", "default_tracer", "enabled",
+           "reset", "set_enabled", "trace", "traced"]
 
 
 def count(name: str, n: int = 1) -> None:
     """Increment a counter — no-op (one branch) when disabled."""
     if _trace_mod._enabled:
         default_registry().count(name, n)
+
+
+def decision(name: str, **attrs):
+    """One-line decision log: a ``<name>.decision`` span carrying the chosen
+    config as attributes (what the tuner picked and why), plus a
+    ``<name>.decisions`` counter.  Returns the span (no-op when disabled)."""
+    if not _trace_mod._enabled:
+        return NOOP_SPAN
+    default_registry().count(f"{name}.decisions")
+    with trace(f"{name}.decision", **attrs) as sp:
+        return sp
 
 
 def reset() -> None:

@@ -3,8 +3,8 @@ context variable, finished spans kept in a bounded ring.
 
 The port's own copy of the span half of the reference package's
 ``obs.trace``: the same span model (name, trace id, parent id, attributes,
-error status), without the JSONL sink, the decorator and the retrospective
-cross-thread spans, which nothing in this package emits yet.
+error status), without the JSONL sink and the retrospective cross-thread spans, which
+nothing in this package emits yet.
 
 ``$REPRO_OBS=0`` (or ``set_enabled(False)``) makes :func:`trace` return a
 shared no-op context manager, so a disabled call site costs one branch.
@@ -12,6 +12,7 @@ shared no-op context manager, so a disabled call site costs one branch.
 from __future__ import annotations
 
 import contextvars
+import functools
 import itertools
 import os
 import threading
@@ -132,6 +133,19 @@ def trace(name: str, **attrs):
     trace_id, parent = (_new_id("t"), None) if cur is None else cur
     return _ActiveSpan(Span(name, trace_id, parent, time.perf_counter(),
                             attrs or None))
+
+
+def traced(name: str, **attrs):
+    """Decorator form of :func:`trace`: ``@traced("tune", k=v)``."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*a, **kw):
+            if not _enabled:
+                return fn(*a, **kw)
+            with trace(name, **attrs):
+                return fn(*a, **kw)
+        return wrapper
+    return deco
 
 
 class Tracer:

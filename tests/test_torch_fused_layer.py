@@ -39,6 +39,7 @@ from repro_torch.gnn import (evaluate, infer_logits, init_gcn, init_sage,
 from repro_torch.kernels import dequant as dequant_mod
 from repro_torch.kernels import fused_layer as layer_mod
 from repro_torch.kernels import ops, ref
+from repro_torch.tuning import PlanCache
 
 from conftest import random_csr
 
@@ -263,8 +264,10 @@ def test_ops_dequantize_matches_jax():
 
 
 def test_fused_error_surfaces():
-    """The reference's ValueErrors for fuse_layers, the unported tuner,
-    the F, H <= 2048 bound, and the inputs the wrappers refuse."""
+    """The reference's ValueErrors for fuse_layers, the F, H <= 2048
+    bound, and the inputs the wrappers refuse; ``strategy="auto"`` with
+    fuse_layers runs (its parity with the reference is in
+    tests/test_torch_tuning.py)."""
     ds = make_dataset("cora", scale=0.01, device=CPU)
     gcn = init_gcn(np.random.default_rng(0), 96, 8, 7, device=CPU)
     sage = init_sage(np.random.default_rng(0), 96, 8, 7, device=CPU)
@@ -275,9 +278,10 @@ def test_fused_error_surfaces():
             ("gcn", gcn, dict(shards=2), "single-device")):
         with pytest.raises(ValueError, match=match):
             evaluate(ds, model, params, fuse_layers=True, device=CPU, **kw)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        evaluate(ds, "gcn", gcn, strategy="auto", fuse_layers=True,
-                 device=CPU)
+    acc = evaluate(ds, "gcn", gcn, strategy="auto", fuse_layers=True,
+                   plan_cache=PlanCache(), tune_kwargs={"budget": 1},
+                   device=CPU)
+    assert 0.0 <= acc <= 1.0
 
     g = random_csr(np.random.default_rng(1), 12, 3.0, skew=0.0)
     ell = sample(tg.CSR(*(_t(a) for a in (g.row_ptr, g.col_ind, g.val)),

@@ -8,7 +8,8 @@ JAX), so on that machine run it without the suite's conftest::
 
 Tolerances: the sampler and the dequantization are bit-exact; float SpMM
 agrees to 1e-5 (nvcc contracts a*b+c into FMA, the plain version rounds
-twice); the quantized gather to 1e-4, as in the reference package's
+twice; the blocked kernel rounds twice too, so it is exact, and is held to
+the same 1e-5); the quantized gather to 1e-4, as in the reference package's
 tests; the fused layer to 1e-4, the tolerance of
 tests/test_conformance.py:_path_fused_layer (its transform sums in
 another order than cuBLAS).  Cases loop inside
@@ -22,9 +23,12 @@ import pytest
 import torch
 
 from repro_torch.core.graph import CSR, csr_from_edges, ell_live_widths
+from repro_torch.core.graph import partition_width_buckets
 from repro_torch.core.quantization import quantize
+from repro_torch.core.sampling import sample_csr_to_block_ell
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import aes_sample as aes_mod
+from repro_torch.kernels import block_ell_spmm as block_mod
 from repro_torch.kernels import dequant as dequant_mod
 from repro_torch.kernels import ell_spmm as ell_mod
 from repro_torch.kernels import fused_layer as layer_mod
@@ -80,7 +84,7 @@ def _check_all(g: CSR, x: torch.Tensor, W: int):
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"aes_sample": 1, "ell_spmm": 3,
                                    "fused_aes_spmm": 1, "fused_layer": 0,
-                                   "dequantize": 0}
+                                   "dequantize": 0, "block_ell_spmm": 0}
 
 
 def test_kernels_match_plain(cuda):
@@ -180,3 +184,40 @@ def test_dequantize_bit_exact(cuda):
                 calls += q.numel() > 0
     torch.cuda.synchronize()
     assert ops.launch_counts()["dequantize"] == calls == 18
+
+
+def test_block_ell_spmm_matches_plain(cuda):
+    """f32/u8/u16 B over mixed strategies at block_rows in {1, 16, 256},
+    one to three width buckets and a partial partition (its other rows
+    zero), on graphs with a ragged last block and with a "full" block
+    wider than 1024 slots; to 1e-5 (f32) and 1e-4 (quantized)."""
+    strategies = (("aes", 8), ("full", 0), ("sfs", 4), ("afs", 32))
+    for n, feat, block_rows, hub in ((37, 33, 1, 0), (300, 100, 16, 3000),
+                                     (700, 128, 256, 0), (130, 64, 16, 0)):
+        g = _graph(n + block_rows, n, 9.0, 0.7, cuda, hub=hub)
+        nb = -(-n // block_rows)
+        configs = [strategies[b % len(strategies)] for b in range(nb)]
+        bell = sample_csr_to_block_ell(g, configs, block_rows)
+        assert not hub or max(bell.widths) > 1024
+        x = torch.from_numpy(np.random.default_rng(n).normal(
+            size=(n, feat)).astype(np.float32)).to(cuda)
+        operands = [(x, None, 1e-5)]
+        for bits in (8, 16):
+            qf = quantize(x, bits)
+            operands.append((qf.q, (qf.scale, qf.x_min), 1e-4))
+        parts = [partition_width_buckets(bell.widths, k) for k in (1, 2, 3)]
+        parts.append(((max(bell.widths), tuple(range(0, nb, 2))),))
+        ops.reset_launch_counts()
+        for buckets in parts:
+            for b, meta, tol in operands:
+                got = ops.block_ell_spmm(bell, b, quantized_meta=meta,
+                                         buckets=buckets)
+                want = block_mod.block_ell_spmm_plain(
+                    bell.val, bell.col, bell.live_w, b, bell.widths,
+                    block_rows, n, buckets, meta)
+                torch.testing.assert_close(
+                    got, want, rtol=tol, atol=tol,
+                    msg=lambda m: f"n={n} rows={block_rows} {buckets}: {m}")
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["block_ell_spmm"] == \
+            len(operands) * sum(len(p) for p in parts)

@@ -15,11 +15,14 @@ from repro.core.graph import ell_live_widths as jlive_widths
 from repro.core.sampling import sample_csr_to_ell as jsample
 from repro.kernels import ref as jref
 from repro_torch.core.graph import CSR, ELL
+from repro_torch.core.sampling import sample_csr_to_block_ell
 from repro_torch.gnn import evaluate, init_gcn, make_dataset
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import aes_sample as aes_mod
+from repro_torch.kernels import block_ell_spmm as block_mod
 from repro_torch.kernels import ell_spmm as ell_mod
 from repro_torch.kernels import fused_spmm as fused_mod
+from repro_torch.tuning import PlanCache
 
 from conftest import random_csr
 
@@ -96,6 +99,17 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError, match="shared memory"):
         fused_mod.fused_aes_spmm(rp, ci, torch.zeros(0), b,
                                  fused_mod.MAX_SHARED_BYTES // 8 + 1)
+    flat, fcol = torch.zeros(16), torch.zeros(16, dtype=torch.int32)
+    blk = dict(widths=(2, 2), block_rows=4, num_rows=7)
+    with pytest.raises(ValueError, match="distinct blocks"):
+        block_mod.block_ell_spmm(flat, fcol, torch.zeros(8, dtype=torch.int32),
+                                 b, buckets=((2, (0, 2)),), **blk)
+    with pytest.raises(ValueError, match="live_w"):
+        block_mod.block_ell_spmm(flat, fcol, live, b, buckets=(), **blk)
+    with pytest.raises(ValueError, match="shorter"):
+        block_mod.block_ell_spmm(flat[:8], fcol[:8],
+                                 torch.zeros(8, dtype=torch.int32), b,
+                                 buckets=(), **blk)
 
 
 def test_cpu_calls_launch_no_kernel():
@@ -109,6 +123,7 @@ def test_cpu_calls_launch_no_kernel():
     ops.fused_layer_spmm(ops.aes_sample(g, 8), b, torch.ones((8, 3)),
                          torch.zeros(3))
     ops.dequantize(torch.zeros((4, 4), dtype=torch.uint8), 1.0, 0.0)
+    ops.block_ell_spmm(sample_csr_to_block_ell(g, [("aes", 4)] * 3, 8), b)
     ds = make_dataset("cora", scale=0.01, device="cpu")
     model = init_gcn(np.random.default_rng(0), 96, 8, 7, device="cpu")
     for backend, fuse in (("cuda", False), ("cuda_fused", False),
@@ -116,9 +131,13 @@ def test_cpu_calls_launch_no_kernel():
         evaluate(ds, "gcn", model, sh_width=8, backend=backend,
                  fuse_layers=fuse, quantize_bits=8 if fuse else None,
                  device="cpu")
+    # the tuned path on CPU tensors: torch candidates only, no kernel
+    evaluate(ds, "gcn", model, strategy="auto", granularity="block",
+             quantize_bits=8, plan_cache=PlanCache(),
+             tune_kwargs={"block_rows": 64, "widths": (8,)}, device="cpu")
     assert ops.launch_counts() == {"ell_spmm": 0, "aes_sample": 0,
                                    "fused_aes_spmm": 0, "fused_layer": 0,
-                                   "dequantize": 0}
+                                   "dequantize": 0, "block_ell_spmm": 0}
 
 
 def test_build_names_sm90a_and_tracks_sources():
@@ -127,7 +146,7 @@ def test_build_names_sm90a_and_tracks_sources():
         path = _build.library_path(name)
         assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
         assert (_build.CSRC / f"{name}.cu").exists()
-    assert len({_build.library_path(n) for n in _build.KERNELS}) == 5
+    assert len({_build.library_path(n) for n in _build.KERNELS}) == 6
 
 
 def test_build_without_nvcc_raises_instead_of_falling_back(monkeypatch):
