@@ -50,7 +50,9 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    back-to-back calls), beside the plain version's time, the bound and,
    for the SpMM, one ``torch.sparse.mm`` on the same sampled matrix; for
    the fused layer also the port's unfused pipeline (``ell_spmm`` +
-   ``torch.matmul`` + bias + ReLU) on the same operands; the blocked SpMM
+   ``torch.matmul`` + bias + ReLU) on the same operands, its bytes and
+   operations bounds (its transform counted at the 3xTF32 rate) and the
+   time of its gather and of its transform alone; the blocked SpMM
    on the tuned GCN BlockELL (natural layout, f32 and u8), beside
    ``torch.sparse.mm`` on the CSR of the same live slots, ``ell_spmm`` on
    the same live slots and ``ell_spmm`` at W=128 on the same graph.
@@ -76,6 +78,10 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 #: H100 SXM float32 rate outside the tensor cores (data sheet), FLOP/s.
 FP32_FLOP_PER_S = 67e12
+#: H100 SXM dense TF32 tensor-core rate (data sheet), FLOP/s; the fused
+#: layer's 3xTF32 transform issues three TF32 products per product, so it
+#: runs at a third of it.
+TF32_FLOP_PER_S = 495e12
 
 W_MAIN = 128        # configs/gnn_paper.py: sh_width
 HIDDEN = 64         # configs/gnn_paper.py: hidden
@@ -587,11 +593,20 @@ def host_ms(torch, fn, batch=TIMING_BATCH) -> float:
     return t
 
 
-def bound(nbytes: float, flops: float) -> tuple:
-    """Least time the card could take: bytes over the memory rate or
-    float32 operations over the float32 rate, whichever is larger."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+def bound_parts(nbytes: float, flops: float,
+                tf32x3_flops: float = 0.0) -> tuple:
+    """(ms for the bytes over the memory rate, ms for the operations over
+    their rates): float32 ones on the float32 pipe, 3xTF32 ones at a third
+    of the TF32 tensor-core rate."""
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            (flops / FP32_FLOP_PER_S
+             + tf32x3_flops / (TF32_FLOP_PER_S / 3)) * 1e3)
+
+
+def bound(nbytes: float, flops: float, tf32x3_flops: float = 0.0) -> tuple:
+    """Least time the card could take, the larger of :func:`bound_parts`,
+    and which of the two it is: (ms, "bytes" or "operations")."""
+    t_bytes, t_ops = bound_parts(nbytes, flops, tf32x3_flops)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -842,9 +857,13 @@ def fused_layer_entry(P, ds, ell, live, launches, errs, timer, plain_timer,
     the main path's seed): layer 1 (F=128 -> H=64, ReLU) in f32 and with
     the uint8 features, layer 2 (F=64 -> H=41, no activation) on layer 1's
     output; each beside the port's unfused pipeline on the same operands
-    (the ``ell_spmm`` kernel, ``torch.matmul``, bias, ReLU).
-    ``gather_phase_ms`` is layer 1 at H = 1, where the kernel's time is
-    nearly all its gather phase."""
+    (the ``ell_spmm`` kernel, ``torch.matmul``, bias, ReLU).  The bound
+    counts the transform's operations at the 3xTF32 rate the kernel uses
+    and the aggregation's on the float32 pipe; both bounds are reported.
+    The split of each layer: ``gather_phase_ms`` is the kernel at H = 1,
+    where its time is nearly all the gather; ``transform_phase_ms`` the
+    kernel with every live width 0, where it gathers nothing and runs W's
+    staging, the transform and the stores."""
     torch, np, ops = P.torch, P.np, P.ops
     x = ds.features
     rows, feat = x.shape
@@ -855,8 +874,8 @@ def fused_layer_entry(P, ds, ell, live, launches, errs, timer, plain_timer,
                                            params.b2))
     qf = P.quantize(x, 8)
 
-    def kernel(b, w, bias, relu, meta):
-        return ops.fused_layer_spmm(ell, b, w, bias, live, relu=relu,
+    def kernel(b, w, bias, relu, meta, live_w=live):
+        return ops.fused_layer_spmm(ell, b, w, bias, live_w, relu=relu,
                                     quantized_meta=meta)
 
     def layer(b, w, bias, relu, meta=None):
@@ -878,17 +897,24 @@ def fused_layer_entry(P, ds, ell, live, launches, errs, timer, plain_timer,
         f_in, h_out = w.shape
         nbytes = (ell_in + uniq * f_in * b.element_size() + f_in * h_out * 4
                   + h_out * 4 + rows * h_out * 4)
-        flops = 2.0 * rows * f_in * h_out + 2.0 * n_live * f_in
-        t_bound, by = bound(nbytes, flops)
+        work = (nbytes, 2.0 * n_live * f_in, 2.0 * rows * f_in * h_out)
+        t_bound, by = bound(*work)
+        t_bytes, t_ops = bound_parts(*work)
+        w_1, bias_1 = w[:, :1].contiguous(), bias[:1].contiguous()
         return got, {"ms": timer(lambda: kernel(b, w, bias, relu, meta)),
                      "plain_ms": plain_timer(plain),
                      "unfused_ms": timer(unfused), "bound_ms": t_bound,
-                     "bound_by": by}
+                     "bound_by": by, "bytes_bound_ms": t_bytes,
+                     "operations_bound_ms": t_ops, "bytes": nbytes,
+                     "gather_phase_ms": timer(
+                         lambda: kernel(b, w_1, bias_1, relu, meta)),
+                     "transform_phase_ms": timer(
+                         lambda: kernel(b, w, bias, relu, meta, no_live))}
 
+    no_live = torch.zeros_like(live)
     h1, layer1 = layer(x, w1, b1, True)
     _, layer2 = layer(h1, w2, b2, False)
     _, layer1_u8 = layer(qf.q, w1, b1, True, (qf.scale, qf.x_min))
-    w_h1, b_h1 = w1[:, :1].contiguous(), b1[:1].contiguous()
     return {
         "name": "fused_layer", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_layer.cu",
@@ -897,7 +923,6 @@ def fused_layer_entry(P, ds, ell, live, launches, errs, timer, plain_timer,
         "max_abs_err": max(errs["fused_layer"] + errs["fused_layer_quant"]
                            + errs["fused_layer_int8"]),
         **layer1, "library_ms": None,
-        "gather_phase_ms": timer(lambda: kernel(x, w_h1, b_h1, True, None)),
         "layer2": {**layer2, "F": HIDDEN, "H": ds.spec.num_classes},
         "u8": layer1_u8,
         "shape": {"rows": rows, "W": W_MAIN, "F": feat, "H": HIDDEN,

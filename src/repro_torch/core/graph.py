@@ -367,24 +367,38 @@ def num_digest_blocks(num_rows: int,
     return max(-(-int(num_rows) // int(digest_rows)), 1)
 
 
-# Identity-keyed digest memo.  CSR tensors are never mutated in place by
-# this package, so a digest computed once for a (row_ptr, col_ind, val)
-# triple stays valid while the tensors live; entries evict when col_ind is
-# garbage collected (weakref.finalize), the cap is a backstop.  Only
-# digests computed from the data are stored.
+# Identity-keyed digest memo.  An entry is keyed by the ids of a CSR's
+# three tensors and keeps weak references to them and their version
+# counters: it is served only for those very tensors, unedited since (an
+# in-place edit bumps ``_version`` and misses), and it is evicted when any
+# of the three is garbage collected (weakref.finalize on each), before its
+# id can be reused.  Inference tensors keep no version counter, so their
+# digests are not memoized.  The cap is a backstop.  Only digests computed
+# from the data are stored.
 _DIGEST_MEMO: dict = {}
 _DIGEST_MEMO_CAP = 512
 
 
 def _digest_memo(csr: CSR) -> dict:
-    key = (id(csr.row_ptr), id(csr.col_ind), id(csr.val))
+    tensors = (csr.row_ptr, csr.col_ind, csr.val)
+    if any(t.is_inference() for t in tensors):
+        return {}
+    key = tuple(id(t) for t in tensors)
+    versions = tuple(t._version for t in tensors)
     entry = _DIGEST_MEMO.get(key)
-    if entry is None:
+    if entry is not None and all(r() is t for r, t in zip(entry[0],
+                                                          tensors)):
+        if entry[1] == versions:
+            return entry[2]
+    else:
         if len(_DIGEST_MEMO) >= _DIGEST_MEMO_CAP:
             _DIGEST_MEMO.clear()
-        entry = _DIGEST_MEMO[key] = {}
-        weakref.finalize(csr.col_ind, _DIGEST_MEMO.pop, key, None)
-    return entry
+        for t in tensors:
+            weakref.finalize(t, _DIGEST_MEMO.pop, key, None)
+    digests: dict = {}
+    _DIGEST_MEMO[key] = (tuple(weakref.ref(t) for t in tensors), versions,
+                         digests)
+    return digests
 
 
 def csr_block_digests(csr: CSR, digest_rows: int = DIGEST_BLOCK_ROWS,
@@ -396,7 +410,7 @@ def csr_block_digests(csr: CSR, digest_rows: int = DIGEST_BLOCK_ROWS,
     (int64 bytes) and its ``col_ind``/``val`` slices — the reference
     package's bytes, so the same CSR gives the same digests in both.  The
     hash runs on the host: on the card this is one device-to-host copy of
-    the CSR per tensor triple (memoized by identity).
+    the CSR per tensor triple (memoized by identity and version).
 
     Returns a list of 32-hex-char digests aligned with ``blocks`` (default:
     all ``num_digest_blocks`` blocks).

@@ -1,7 +1,8 @@
 // Shared device code for the kernels: the Table 1 strategy of one row
-// and the inverse slot map of Algorithm 1; Eq. 2 and the warp-per-row
-// live-prefix gather of the ELL SpMM, which the fused layer reuses; plus the
-// C entry point that turns a CUDA error code into text for the Python
+// and the inverse slot map of Algorithm 1; Eq. 2; the warp-per-row
+// live-prefix gather of the ELL SpMM, which the blocked SpMM reuses; the
+// 4-features-a-lane vector loads of the two fused kernels; plus the C
+// entry point that turns a CUDA error code into text for the Python
 // wrappers.
 //
 // The sampler arithmetic is int32, as in the reference sampler
@@ -148,6 +149,93 @@ __device__ __forceinline__ void warp_gather_row(
       if (f < feat) dst[f] = acc[i];
     }
   }
+}
+
+// Features f..f+3 of one B row (row_base = its first element), for the
+// gathers that give each lane 4 consecutive features (the fused kernels).
+// kVec: one 16-byte (float), 8-byte (uint16) or 4-byte (uint8) load, kept
+// as loaded (Feature4) so that a lane holds several slots' loads in few
+// registers, and turned into f32 at its FMA (feature4_value); the caller
+// guarantees F % 4 == 0 and a base aligned to that size, so a lane is
+// wholly inside the row or wholly past it (then 0).  Otherwise the masked
+// scalar path, converted at load: features at or past F read as 0.
+// uint8/uint16 go through Eq. 2 (eq2, rounded twice) either way, on the
+// integer's exact f32 value.
+template <typename T> struct Vec4Of;
+template <> struct Vec4Of<float> { using type = float4; };
+template <> struct Vec4Of<uint16_t> { using type = uint2; };
+template <> struct Vec4Of<uint8_t> { using type = uint32_t; };
+
+template <bool kVec, typename T> struct Feature4 { using type = float4; };
+template <typename T> struct Feature4<true, T> {
+  using type = typename Vec4Of<T>::type;
+};
+
+// The f32 value of the integer in bytes [lo, hi] of w (selector picks
+// them into the mantissa of 2^23, exact below 2^23): one byte permute and
+// one add, where a conversion instruction runs at a quarter rate.
+__device__ __forceinline__ float int_field(uint32_t w, uint32_t selector) {
+  return __uint_as_float(__byte_perm(w, 0x4B000000u, selector)) - 8388608.f;
+}
+
+template <bool kVec, typename T>
+__device__ __forceinline__ typename Feature4<kVec, T>::type load_feature4(
+    const T* __restrict__ b, int64_t row_base, int f, int feat, float scale,
+    float x_min) {
+  using V = typename Vec4Of<T>::type;
+  if constexpr (kVec) {
+    if (f >= feat) return V{};
+    return __ldg(reinterpret_cast<const V*>(b + row_base + f));
+  } else {
+    float x[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      x[j] = f + j < feat ? load_feature(b, row_base + f + j, scale, x_min)
+                          : 0.f;
+    return make_float4(x[0], x[1], x[2], x[3]);
+  }
+}
+
+__device__ __forceinline__ float4 eq2_4(float a, float b, float c, float d,
+                                        float scale, float x_min) {
+  return make_float4(eq2(a, scale, x_min), eq2(b, scale, x_min),
+                     eq2(c, scale, x_min), eq2(d, scale, x_min));
+}
+__device__ __forceinline__ float4 vec4_value(const float4& x, float,
+                                             float) {
+  return x;
+}
+__device__ __forceinline__ float4 vec4_value(const uint2& x, float scale,
+                                             float x_min) {
+  return eq2_4(int_field(x.x, 0x7410u), int_field(x.x, 0x7432u),
+               int_field(x.y, 0x7410u), int_field(x.y, 0x7432u), scale,
+               x_min);
+}
+__device__ __forceinline__ float4 vec4_value(uint32_t x, float scale,
+                                             float x_min) {
+  return eq2_4(int_field(x, 0x7540u), int_field(x, 0x7541u),
+               int_field(x, 0x7542u), int_field(x, 0x7543u), scale, x_min);
+}
+
+// The f32 features of a load_feature4 result; 0 for a lane past F.
+template <bool kVec, typename T>
+__device__ __forceinline__ float4 feature4_value(
+    const typename Feature4<kVec, T>::type& x, int f, int feat, float scale,
+    float x_min) {
+  if constexpr (kVec) {
+    return f < feat ? vec4_value(x, scale, x_min)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+  } else {
+    return x;
+  }
+}
+
+// acc += v * x, one FMA per feature.
+__device__ __forceinline__ void fma4(float v, const float4& x, float4& acc) {
+  acc.x = fmaf(v, x.x, acc.x);
+  acc.y = fmaf(v, x.y, acc.y);
+  acc.z = fmaf(v, x.z, acc.z);
+  acc.w = fmaf(v, x.w, acc.w);
 }
 
 extern "C" const char* repro_cuda_error_string(int code) {

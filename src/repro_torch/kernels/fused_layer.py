@@ -1,7 +1,7 @@
 """Fused GNN layer: ``out[r] = act(sum_{k < live_w[r]} val[r, k] *
 B[col[r, k]] @ W + bias)`` in one kernel, on float32 B or on uint8/uint16
 B with Eq. 2 applied in the gather; the ``[rows, F]`` aggregation stays
-in shared memory.
+in shared memory and the transform runs on the tensor cores in 3xTF32.
 
 The kernel (``csrc/fused_layer.cu``) replaces the Pallas TPU kernel
 ``src/repro/kernels/fused_layer.py:fused_layer``; the source says what
@@ -20,8 +20,10 @@ from repro_torch.kernels.ell_spmm import (_QUANT_DTYPES, _eq2_constants,
 
 __all__ = ["MAX_SHARED_BYTES", "fused_layer", "fused_layer_plain"]
 
-#: Shared memory one Hopper block may use (opt-in maximum); the kernel's
-#: aggregation tile takes at least 4 rows of F (rounded up to 4) f32 values.
+#: Shared memory one Hopper block may use (opt-in maximum).  The wrapper
+#: refuses an F whose 4-row f32 tile would not fit in it, its contract
+#: since the first kernel; the kernel itself gathers F in 128-feature
+#: chunks and streams W in 128 x 64 tiles.
 MAX_SHARED_BYTES = 232448
 
 _P, _I = ctypes.c_void_p, ctypes.c_int

@@ -2,8 +2,9 @@
 shared memory and aggregate over the live slots, with no ELL operand in
 device memory.
 
-The kernel (``csrc/fused_spmm.cu``) replaces the Pallas TPU kernel
-``src/repro/kernels/fused_spmm.py:fused_aes_spmm``.  It is bound by bytes.
+The kernel (``csrc/fused_spmm.cu``, one warp a row) replaces the Pallas
+TPU kernel ``src/repro/kernels/fused_spmm.py:fused_aes_spmm``.  It is
+bound by bytes.
 :func:`fused_aes_spmm_plain` (sample, then SpMM) is its plain PyTorch
 version, which the wrapper runs for CPU tensors.
 """
@@ -18,8 +19,9 @@ from repro_torch.kernels.ref import aes_spmm as fused_aes_spmm_plain
 
 __all__ = ["MAX_SHARED_BYTES", "fused_aes_spmm", "fused_aes_spmm_plain"]
 
-#: Shared memory one Hopper block may use (opt-in maximum); the kernel
-#: stages 8 bytes (val + col) per slot.
+#: Shared memory one Hopper block may use (opt-in maximum).  The wrapper
+#: takes W up to the width whose 8 bytes (val + col) a slot fit in it, the
+#: paper kernel's bound; the kernel itself stages 128 slots at a time.
 MAX_SHARED_BYTES = 232448
 
 
@@ -36,7 +38,7 @@ def fused_aes_spmm(row_ptr: torch.Tensor, col_ind: torch.Tensor,
     Args:
       row_ptr / col_ind / val: the CSR (int32 / int32 / f32).
       b: f32 ``[nodes, F]``.
-      sh_width: sampling width W; ``8 * W`` bytes of shared memory.
+      sh_width: sampling width W, with ``8 * W <= MAX_SHARED_BYTES``.
 
     Returns f32 ``[rows, F]``.  CPU tensors run the plain version; CUDA
     tensors launch the kernel.

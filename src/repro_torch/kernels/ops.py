@@ -27,10 +27,9 @@ KERNELS = {
 }
 
 # The reference package's bound on a fused layer's F and H (there the
-# VMEM budget of the aggregation tile, the weights and the B rows).  On
-# Hopper the kernel keeps the [rows, F] aggregation tile in shared memory
-# (8 rows of F f32 values at F = 2048, 64 KiB of a block's 227 KiB), so the
-# same bound stands for its shared-memory budget.
+# VMEM budget of the aggregation tile, the weights and the B rows).  The
+# Hopper kernel tiles F and H and has no such limit; the port keeps the
+# reference's bound so that both packages take the same layers.
 _FUSED_LAYER_MAX_DIM = 2048
 
 

@@ -11,8 +11,9 @@ agrees to 1e-5 (nvcc contracts a*b+c into FMA, the plain version rounds
 twice; the blocked kernel rounds twice too, so it is exact, and is held to
 the same 1e-5); the quantized gather to 1e-4, as in the reference package's
 tests; the fused layer to 1e-4, the tolerance of
-tests/test_conformance.py:_path_fused_layer (its transform sums in
-another order than cuBLAS).  Cases loop inside
+tests/test_conformance.py:_path_fused_layer (its transform runs on the
+tensor cores in 3xTF32, float32-level error summed in another order than
+cuBLAS).  Cases loop inside
 tests, so the file stays smaller than the JAX package's test files (see
 tests/test_torch_core.py).
 """
@@ -88,9 +89,14 @@ def _check_all(g: CSR, x: torch.Tensor, W: int):
 
 
 def test_kernels_match_plain(cuda):
+    """Ragged F (33, 60, 100, 130: the masked scalar path where F % 4 != 0),
+    F = 128 (one float4 a lane) and F > 128 (several feature passes of the
+    fused kernel, 2048 among them), W from 1 to 128, row counts that fill
+    no whole block of warps, and power-law rows, many of them empty."""
     for n, feat, W in ((8, 128, 8), (37, 33, 16), (64, 256, 4),
                        (130, 64, 32), (16, 128, 1), (300, 100, 128),
-                       (70, 60, 16)):
+                       (70, 60, 16), (517, 128, 128), (260, 130, 1),
+                       (50, 2048, 16)):
         g = _graph(n + W, n, 9.0, 0.7, cuda)
         x = torch.randn((n, feat), generator=torch.Generator().manual_seed(n)
                         ).to(cuda)
@@ -117,11 +123,16 @@ def test_empty_graph_and_empty_rows(cuda):
 
 
 def test_wide_w_uses_opt_in_shared_memory(cuda):
-    """W = 8192 stages 64 KiB, above the 48 KiB default a block gets."""
+    """W far above the fused kernel's 128-slot staging chunk: 8192 slots
+    (64 KiB of sh_val/sh_col, which the paper's one-block-per-row kernel
+    staged at once in opt-in shared memory) and the widest W the wrapper
+    takes, 29056 (8 W = 232448 bytes), both over a 30000-edge hub row:
+    the warp loops over 64 and 227 chunks."""
     g = _graph(4, 64, 2.0, 0.0, cuda, hub=30000)
-    x = torch.randn((64, 32), generator=torch.Generator().manual_seed(4)
-                    ).to(cuda)
-    _check_all(g, x, 8192)
+    for W, feat in ((8192, 32), (8192, 128), (29056, 60)):
+        x = torch.randn((64, feat), generator=torch.Generator().manual_seed(
+            4)).to(cuda)
+        _check_all(g, x, W)
 
 
 def test_every_kernel_builds_for_sm90a(cuda):
@@ -132,12 +143,25 @@ def test_every_kernel_builds_for_sm90a(cuda):
 
 
 def test_fused_layer_matches_plain(cuda):
-    """f32/u8/u16 B, both activations, ragged F and H up to H=41, and
-    F = H = 2048, whose 64 KiB aggregation tile needs opt-in shared
-    memory."""
-    for n, feat, hidden, W in ((37, 33, 41, 16), (70, 60, 5, 128),
-                               (130, 64, 1, 4), (24, 2048, 2048, 8)):
-        g = _graph(n + W, n, 9.0, 0.7, cuda)
+    """f32/u8/u16 B, both activations; F in {33, 60} (ragged: masked or
+    partly used lanes), 64 and 128 (vector loads), 2048 (16 gather chunks
+    into one accumulator) and H in {1, 5, 41} (zero-padded n-tiles), 64 and
+    2048 (32 passes of 64 columns over W streamed through shared memory);
+    row counts that fill no whole 16-row warp tile or 256-row group; W in
+    {1, 4, 8, 16, 128, 2048}, a hub row far above W, and graphs with empty
+    rows (power-law degrees, and 20 of 40 rows with no edge)."""
+    rows = np.repeat(np.arange(20), 3)
+    empty_rows = csr_from_edges(np.arange(60) % 40, rows, 40,
+                                np.random.default_rng(5).normal(
+                                    size=60).astype(np.float32), device=cuda)
+    for n, feat, hidden, W, hub in (
+            (37, 33, 41, 16, 0), (70, 60, 5, 128, 0), (130, 64, 1, 4, 0),
+            (24, 2048, 2048, 8, 0), (517, 128, 64, 1, 0),
+            (300, 128, 41, 128, 3000), (90, 2048, 1, 16, 0),
+            (200, 128, 5, 2048, 20000), (40, 60, 41, 16, -1),
+            (300, 33, 1, 128, 3000)):
+        g = empty_rows if hub < 0 else _graph(n + W, n, 9.0, 0.7, cuda,
+                                              hub=hub)
         rng = np.random.default_rng(n)
         x = torch.from_numpy(rng.normal(size=(n, feat)).astype(np.float32)
                              ).to(cuda)
@@ -165,6 +189,27 @@ def test_fused_layer_matches_plain(cuda):
                                   f"bits={bits}: {m}")
         torch.cuda.synchronize()
         assert ops.launch_counts()["fused_layer"] == 6
+    # B whose base is 4 (f32) or 1 (u8) bytes past an aligned one, at
+    # F = 128: the vector loads give way to the masked scalar path
+    g = _graph(7, 300, 9.0, 0.7, cuda)
+    ell = ops.aes_sample(g, 128)
+    live = ell_live_widths(ell.val, ell.col)
+    x = torch.randn((300, 128), generator=torch.Generator().manual_seed(7)
+                    ).to(cuda)
+    w, bias = x[:128, :41].contiguous() / 10, x[0, :41].contiguous()
+    for bits in (None, 8):
+        qf = quantize(x, 8)
+        src, meta = (x, None) if bits is None else (qf.q,
+                                                    (qf.scale, qf.x_min))
+        b = torch.empty(src.numel() + 1, dtype=src.dtype,
+                        device=cuda)[1:].view(src.shape).copy_(src)
+        assert b.data_ptr() % 16 != 0 and b.is_contiguous()
+        torch.testing.assert_close(
+            ops.fused_layer_spmm(ell, b, w, bias, live,
+                                 quantized_meta=meta),
+            layer_mod.fused_layer_plain(ell.val, ell.col, live, b, w, bias,
+                                        quantized_meta=meta),
+            rtol=1e-4, atol=1e-4)
 
 
 def test_dequantize_bit_exact(cuda):

@@ -16,6 +16,7 @@ test files (see tests/test_torch_core.py).
 from __future__ import annotations
 
 import dataclasses
+import gc
 
 import numpy as np
 import pytest
@@ -270,3 +271,72 @@ def test_evaluate_auto_matches_reference(trained, model):
         # logits agree to 1e-4: the argmax may differ only on a test node
         # whose top two classes lie within that of each other
         assert abs(acc - want_acc) * mask.sum() <= 1 + 1e-6, case
+
+
+_NORMALIZERS = {
+    "gcn": lambda m, g: m.gcn_normalize(g),
+    "gcn_no_loops": lambda m, g: m.gcn_normalize(g, add_loops=False),
+    "mean": lambda m, g: m.mean_normalize(g),
+}
+
+
+@pytest.mark.parametrize("norm", sorted(_NORMALIZERS))
+def test_digest_memo_drops_collected_csr(norm):
+    """A normalized CSR shares ``row_ptr``/``col_ind`` with its input (not
+    with loops added) and carries a new ``val``: once it is collected, the
+    memo holds nothing under its key, so a later CSR that takes the dead
+    ``val``'s id cannot inherit its digests (nor the plan they key)."""
+    base = to_port(_graphs()["skew"])
+    c = _NORMALIZERS[norm](tg, base)
+    digests = tg.csr_block_digests(c, 64)
+    key = tuple(id(t) for t in (c.row_ptr, c.col_ind, c.val))
+    assert key in tg._DIGEST_MEMO
+    assert tg.csr_block_digests(c, 64) == digests         # a memo hit
+    del c
+    gc.collect()
+    assert key not in tg._DIGEST_MEMO
+    # the input, whose row_ptr/col_ind outlive the normalized CSR, still
+    # digests its own values
+    assert tg.csr_block_digests(base, 64) == jg.csr_block_digests(
+        _graphs()["skew"], 64)
+
+
+@pytest.mark.parametrize("tensor", ["row_ptr", "col_ind", "val"])
+def test_digest_memo_misses_after_in_place_edit(tensor):
+    """An in-place edit of any of a CSR's tensors changes its digests, to
+    the reference's digests of the edited arrays."""
+    g = jg.mean_normalize(_graphs()["heavy"])
+    c = to_port(g)
+    before = tg.csr_block_digests(c, 32)
+    arrays = {k: np.array(getattr(g, k)) for k in ("row_ptr", "col_ind",
+                                                   "val")}
+    if tensor == "val":
+        c.val.mul_(2.0)
+        arrays["val"] *= 2.0
+    elif tensor == "col_ind":
+        c.col_ind.add_(1).remainder_(g.num_cols)
+        arrays["col_ind"] = (arrays["col_ind"] + 1) % g.num_cols
+    else:   # move one edge from row 0 to row 1: same nnz, new row_ptr
+        c.row_ptr[1] -= 1
+        arrays["row_ptr"][1] -= 1
+    after = tg.csr_block_digests(c, 32)
+    assert after != before
+    want = jg.CSR(*(jnp.asarray(arrays[k]) for k in ("row_ptr", "col_ind",
+                                                     "val")), g.num_cols)
+    assert after == jg.csr_block_digests(want, 32)
+    assert fingerprint(c) == jfeatures.fingerprint(want)
+
+
+@pytest.mark.parametrize("digest_rows", [1, 64, tg.DIGEST_BLOCK_ROWS])
+def test_digests_of_untouched_csr_match_reference(digest_rows):
+    """Digests stay bit-identical to the reference's for the same numpy
+    arrays, computed afresh, served from the memo, and for a subset of
+    blocks."""
+    for name, g in _graphs().items():
+        c = to_port(g)
+        want = jg.csr_block_digests(g, digest_rows)
+        assert tg.csr_block_digests(c, digest_rows) == want, name
+        assert tg.csr_block_digests(c, digest_rows) == want, name
+        some = list(range(0, len(want), 3))
+        assert tg.csr_block_digests(c, digest_rows, blocks=some) == \
+            [want[b] for b in some], name
