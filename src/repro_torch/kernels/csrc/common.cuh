@@ -1,15 +1,17 @@
 // Shared device code for the kernels: the Table 1 strategy of one row
-// and the inverse slot map of Algorithm 1; Eq. 2; the warp-per-row
-// live-prefix gather of the ELL SpMM, which the blocked SpMM reuses; the
-// 4-features-a-lane vector loads of the two fused kernels; plus the C
-// entry point that turns a CUDA error code into text for the Python
-// wrappers.
+// and the inverse slot map of Algorithm 1; Eq. 2; the 4-features-a-lane
+// vector loads of the two fused kernels; the group gather of the ELL SpMM
+// and the blocked SpMM (4-32 lanes a row, one 4- to 16-byte load a lane a
+// slot, several B rows in flight a lane, a feature slice a grid row);
+// plus the C entry point that turns a CUDA error code into text for the
+// Python wrappers.
 //
 // The sampler arithmetic is int32, as in the reference sampler
 // (repro_torch/core/sampling.py), so the kernels reproduce it bit for bit.
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -88,67 +90,6 @@ __device__ __forceinline__ float2 eq2_constants(const float* scale_p,
                                                 const float* x_min_p) {
   return make_float2(scale_p != nullptr ? *scale_p : 1.f,
                      x_min_p != nullptr ? *x_min_p : 0.f);
-}
-
-constexpr int kGatherFeatPerLane = 4;
-constexpr int kGatherFeatPerPass = 32 * kGatherFeatPerLane;
-
-// dst[f] = sum_{k < live} vrow[k] * B[crow[k], f] for f < feat, computed by
-// the one warp that calls it (lane = its lane id).  Lanes run across
-// features, so every B row is read coalesced; the warp loads 32 slots of
-// (val, col) at once, one per lane, and broadcasts them with shuffles; each
-// lane keeps kGatherFeatPerLane accumulators, so one pass covers 128
-// features.  Slots are summed in slot order with an f32 accumulator, as the
-// plain version does.  By default nvcc contracts a*b+c into FMA, so the sum
-// agrees to float tolerance, not bit for bit; kRoundTwice rounds after the
-// product and after the sum as the plain version does, which makes the sum
-// bit-identical to it however long the row.  The blocked SpMM needs that:
-// its "full" rows sum thousands of slots, where FMA drifts past 1e-5 of
-// the plain version.  The others keep FMA: rounding twice made ell_spmm
-// and the fused layer 4-10% slower on the reddit main path (PERF.md).  dst
-// may be global or shared memory.
-template <typename T, bool kRoundTwice = false>
-__device__ __forceinline__ void warp_gather_row(
-    const float* __restrict__ vrow, const int* __restrict__ crow, int live,
-    const T* __restrict__ b, int feat, float scale, float x_min, float* dst,
-    int lane) {
-  for (int f0 = 0; f0 < feat; f0 += kGatherFeatPerPass) {
-    float acc[kGatherFeatPerLane];
-#pragma unroll
-    for (int i = 0; i < kGatherFeatPerLane; ++i) acc[i] = 0.f;
-
-    for (int k0 = 0; k0 < live; k0 += 32) {
-      float my_v = 0.f;
-      int my_c = 0;
-      if (k0 + lane < live) {
-        my_v = vrow[k0 + lane];
-        my_c = crow[k0 + lane];
-      }
-      const int n = min(32, live - k0);
-      for (int kk = 0; kk < n; ++kk) {
-        const float v = __shfl_sync(0xffffffffu, my_v, kk);
-        const int c = __shfl_sync(0xffffffffu, my_c, kk);
-        const T* brow = b + static_cast<int64_t>(c) * feat;
-#pragma unroll
-        for (int i = 0; i < kGatherFeatPerLane; ++i) {
-          const int f = f0 + i * 32 + lane;
-          if (f < feat) {
-            const float x = load_feature(brow, f, scale, x_min);
-            if constexpr (kRoundTwice) {
-              acc[i] = __fadd_rn(acc[i], __fmul_rn(v, x));
-            } else {
-              acc[i] += v * x;
-            }
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kGatherFeatPerLane; ++i) {
-      const int f = f0 + i * 32 + lane;
-      if (f < feat) dst[f] = acc[i];
-    }
-  }
 }
 
 // Features f..f+3 of one B row (row_base = its first element), for the
@@ -236,6 +177,272 @@ __device__ __forceinline__ void fma4(float v, const float4& x, float4& acc) {
   acc.y = fmaf(v, x.y, acc.y);
   acc.z = fmaf(v, x.z, acc.z);
   acc.w = fmaf(v, x.w, acc.w);
+}
+
+// The group gather of the ELL SpMM and the blocked SpMM.  Its settings,
+// each measured against the alternatives on the reddit main path
+// (PERF.md); a -D flag of the same name builds a variant for side-by-side
+// timing (scripts/gather_variants.py):
+// - REPRO_GATHER_UNROLL: B-row loads a lane issues before their FMAs (2
+//   and 8 were slower than 4).
+#ifndef REPRO_GATHER_UNROLL
+#define REPRO_GATHER_UNROLL 4
+#endif
+// - REPRO_GATHER_MIN_GROUP: the fewest lanes a row gets (32: one row a
+//   warp, slower wherever a row needs fewer lanes).
+#ifndef REPRO_GATHER_MIN_GROUP
+#define REPRO_GATHER_MIN_GROUP 4
+#endif
+// - REPRO_GATHER_WIDE_LANES_MAX: rows of at most this many slots get
+//   16-byte lanes (several rows a warp), longer ones 4 features a lane.
+#ifndef REPRO_GATHER_WIDE_LANES_MAX
+#define REPRO_GATHER_WIDE_LANES_MAX 32
+#endif
+// - REPRO_GATHER_FMA: contract a*b+c into FMA.  By default both gathers
+//   round after the product and after the sum, as the plain version does,
+//   so a sum is bit-identical to it at any row length (with FMA, a row of
+//   2048 live slots drifted 2.1e-5 from it, past the 1e-5 tolerance).
+#ifdef REPRO_GATHER_FMA
+constexpr bool kGatherRoundTwice = false;
+#else
+constexpr bool kGatherRoundTwice = true;
+#endif
+// - REPRO_GATHER_MIN_BLOCKS: ask ptxas to fit this many blocks an SM
+//   (fewer registers a thread, more warps an SM; 12 and 16 were slower).
+//   By default ptxas chooses: naming 1 block, which should change nothing,
+//   made it take more registers and the kernels slower.
+#ifdef REPRO_GATHER_MIN_BLOCKS
+#define REPRO_GATHER_BOUNDS(t) __launch_bounds__(t, REPRO_GATHER_MIN_BLOCKS)
+#else
+#define REPRO_GATHER_BOUNDS(t) __launch_bounds__(t)
+#endif
+
+// A lane's loaded share of a B row in the group gather: K features of T,
+// as loaded (kVec: K * sizeof(T) bytes, one 4-, 8- or 16-byte load, turned
+// into f32 at the FMA) or, on the masked scalar path, as f32 features
+// converted at load (0 past F).
+template <int kWords> struct RawWords;
+template <> struct RawWords<1> { using type = uint32_t; };
+template <> struct RawWords<2> { using type = uint2; };
+template <> struct RawWords<4> { using type = uint4; };
+
+template <bool kVec, typename T, int K> struct LaneLoad {
+  static constexpr int kWords = K * static_cast<int>(sizeof(T)) / 4;
+  typename RawWords<kWords>::type raw;
+};
+template <typename T, int K> struct LaneLoad<false, T, K> { float x[K]; };
+
+__device__ __forceinline__ uint32_t raw_word(uint32_t r, int) { return r; }
+__device__ __forceinline__ uint32_t raw_word(const uint2& r, int i) {
+  return i == 0 ? r.x : r.y;
+}
+__device__ __forceinline__ uint32_t raw_word(const uint4& r, int i) {
+  return i == 0 ? r.x : i == 1 ? r.y : i == 2 ? r.z : r.w;
+}
+
+template <bool kVec, int K, typename T>
+__device__ __forceinline__ LaneLoad<kVec, T, K> lane_load(
+    const T* __restrict__ b, int64_t row_base, int f, int feat, float scale,
+    float x_min) {
+  LaneLoad<kVec, T, K> l;
+  if constexpr (kVec) {
+    using R = decltype(l.raw);
+    l.raw = __ldg(reinterpret_cast<const R*>(b + row_base + f));
+  } else {
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+      l.x[j] = f + j < feat ? load_feature(b, row_base + f + j, scale, x_min)
+                            : 0.f;
+  }
+  return l;
+}
+
+// The f32 values of one 32-bit word of B: one float, or two uint16 or four
+// uint8 through Eq. 2 (int_field: the integer's exact f32 value).
+__device__ __forceinline__ void word_values(uint32_t w, float, float,
+                                            float (&v)[1]) {
+  v[0] = __uint_as_float(w);
+}
+__device__ __forceinline__ void word_values(uint32_t w, float scale,
+                                            float x_min, float (&v)[2]) {
+  v[0] = eq2(int_field(w, 0x7410u), scale, x_min);
+  v[1] = eq2(int_field(w, 0x7432u), scale, x_min);
+}
+__device__ __forceinline__ void word_values(uint32_t w, float scale,
+                                            float x_min, float (&v)[4]) {
+  v[0] = eq2(int_field(w, 0x7540u), scale, x_min);
+  v[1] = eq2(int_field(w, 0x7541u), scale, x_min);
+  v[2] = eq2(int_field(w, 0x7542u), scale, x_min);
+  v[3] = eq2(int_field(w, 0x7543u), scale, x_min);
+}
+
+// acc + v * x: one FMA, or, with kRoundTwice, rounded after the product
+// and after the sum as the plain PyTorch version rounds.
+template <bool kRoundTwice>
+__device__ __forceinline__ float fma1(float v, float x, float acc) {
+  if constexpr (kRoundTwice) return __fadd_rn(acc, __fmul_rn(v, x));
+  return fmaf(v, x, acc);
+}
+
+// acc[j] += v * (feature j of the lane's load).
+template <bool kRoundTwice, bool kVec, typename T, int K>
+__device__ __forceinline__ void lane_fma(float v,
+                                         const LaneLoad<kVec, T, K>& l,
+                                         float scale, float x_min,
+                                         float (&acc)[K]) {
+  if constexpr (kVec) {
+    constexpr int kWords = LaneLoad<kVec, T, K>::kWords;
+    constexpr int kPerWord = K / kWords;
+#pragma unroll
+    for (int i = 0; i < kWords; ++i) {
+      float x[kPerWord];
+      word_values(raw_word(l.raw, i), scale, x_min, x);
+#pragma unroll
+      for (int j = 0; j < kPerWord; ++j)
+        acc[i * kPerWord + j] = fma1<kRoundTwice>(v, x[j],
+                                                  acc[i * kPerWord + j]);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < K; ++j) acc[j] = fma1<kRoundTwice>(v, l.x[j], acc[j]);
+  }
+}
+
+// Stores a lane's K features f.. of an output row (none at or past F).
+template <bool kVec, int K>
+__device__ __forceinline__ void lane_store(float* orow, int f, int feat,
+                                           const float (&acc)[K]) {
+#pragma unroll
+  for (int j = 0; j < K; j += 4) {
+    if constexpr (kVec) {
+      *reinterpret_cast<float4*>(orow + f + j) =
+          make_float4(acc[j], acc[j + 1], acc[j + 2], acc[j + 3]);
+    } else {
+#pragma unroll
+      for (int i = j; i < j + 4; ++i)
+        if (f + i < feat) orow[f + i] = acc[i];
+    }
+  }
+}
+
+// dst[f] = sum_{k < live} vrow[k] * B[crow[k], f] for f_lo <= f < f_hi,
+// computed by the group of G lanes that holds one row; the 32 / G groups
+// of a warp hold 32 / G rows, and every lane of the warp calls this
+// together (the loops are bounded by the warp's longest row, so the
+// shuffles see the whole warp).  Each lane owns K consecutive features of
+// a B row: one K * sizeof(T)-byte load a slot when kVec (F a multiple of
+// K and B aligned to that size), else masked scalar loads converted at
+// load.  The group loads G slots of (val, col) at once, one per lane, and
+// broadcasts them with shuffles; the next G slots load while this chunk's
+// B rows do.  Each lane issues the B loads of up to REPRO_GATHER_UNROLL
+// slots before their FMAs, so a row's B rows are in flight together, not
+// one after the other.  Sums run in slot order per feature with f32
+// accumulators, rounded as the plain version rounds (kGatherRoundTwice),
+// so issuing loads early changes no result.  uint8/uint16 B go through
+// Eq. 2 (eq2, rounded twice) on the integer's exact f32 value.  The first
+// chunk of (val, col) loads up to avail (the row's slots in memory, >=
+// live) before live is needed, so it overlaps the load of live.  A group
+// past the last row passes avail = live = 0 and dst = nullptr.
+template <int G, int K, bool kVec, typename T>
+__device__ __forceinline__ void group_gather_row(
+    const float* __restrict__ vrow, const int* __restrict__ crow, int avail,
+    int live, const T* __restrict__ b, int feat, int f_lo, int f_hi,
+    float scale, float x_min, float* __restrict__ dst, int lane) {
+  constexpr unsigned kAll = 0xffffffffu;
+  // the scalar path holds converted features: at most 4 slots in flight
+  constexpr int kU = kVec || REPRO_GATHER_UNROLL < 4 ? REPRO_GATHER_UNROLL
+                                                     : 4;
+  constexpr int U = kU < G ? kU : G;
+  static_assert(G % U == 0, "a chunk of G slots is whole unroll steps");
+  const int gl = lane % G;
+  float v0 = 0.f;
+  int c0 = 0;
+  if (gl < avail) {
+    v0 = vrow[gl];
+    c0 = crow[gl];
+  }
+  const int warp_live = __reduce_max_sync(kAll, live);
+  for (int f0 = f_lo; f0 < f_hi; f0 += K * G) {
+    const int f = f0 + K * gl;
+    const bool has = f < f_hi;
+    float acc[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) acc[j] = 0.f;
+    float cv = v0;
+    int cc = c0;
+    for (int k0 = 0; k0 < warp_live; k0 += G) {
+      float nv = 0.f;
+      int nc = 0;
+      if (k0 + G + gl < live) {
+        nv = vrow[k0 + G + gl];
+        nc = crow[k0 + G + gl];
+      }
+      const int n = min(G, warp_live - k0);
+      for (int k1 = 0; k1 < n; k1 += U) {
+        LaneLoad<kVec, T, K> x[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int c = __shfl_sync(kAll, cc, k1 + u, G);
+          if (has && k0 + k1 + u < live)
+            x[u] = lane_load<kVec, K>(b, static_cast<int64_t>(c) * feat, f,
+                                      feat, scale, x_min);
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const float v = __shfl_sync(kAll, cv, k1 + u, G);
+          if (has && k0 + k1 + u < live)
+            lane_fma<kGatherRoundTwice>(v, x[u], scale, x_min, acc);
+        }
+      }
+      cv = nv;
+      cc = nc;
+    }
+    if (has && dst != nullptr) lane_store<kVec>(dst, f, feat, acc);
+  }
+}
+
+
+// Calls fn(std::bool_constant<kVec>, std::integral_constant<int, G>,
+// std::integral_constant<int, K>) for the gather variant a launch takes:
+// - K, the features a lane holds: 16 bytes of B (4 f32, 8 uint16 or 16
+//   uint8) where a row holds at most REPRO_GATHER_WIDE_LANES_MAX slots
+//   (max_width), else 4 (4, 8 or 16 bytes).  With K = 16 uint8 features a
+//   row of 128 takes 8 lanes, so 4 rows share a warp, which runs until the
+//   longest of them ends: on the reddit ELL at W = 128 (rows of 1 to 128
+//   live slots) that lost to 4 features a lane, and on the tuned BlockELL
+//   (16-32) it won (PERF.md).
+// - kVec where F is a multiple of K and B's base is aligned to K *
+//   sizeof(T) bytes (16-byte lanes that F or the base do not allow fall
+//   back to K = 4; else the masked scalar path, K = 4, G = 32).
+// - G, the lanes a row gets: the fewest of 4, 8, 16 and 32 whose K
+//   features a lane cover the slice (32 for a wider one, which takes
+//   several passes), and at least REPRO_GATHER_MIN_GROUP.
+// Returns fn's result.
+template <typename T, typename Fn>
+int dispatch_gather(const T* b, int feat, int slice_feat, int max_width,
+                    Fn&& fn) {
+  constexpr int kWide = 16 / static_cast<int>(sizeof(T));
+  using Kc4 = std::integral_constant<int, 4>;
+  using KcWide = std::integral_constant<int, kWide>;
+  auto fits = [&](int k) {  // whole K-feature lanes, aligned loads
+    return feat % k == 0 &&
+           reinterpret_cast<uintptr_t>(b) % (k * sizeof(T)) == 0;
+  };
+  const bool wide = max_width <= REPRO_GATHER_WIDE_LANES_MAX && fits(kWide);
+  if (!wide && !fits(4))
+    return fn(std::false_type{}, std::integral_constant<int, 32>{}, Kc4{});
+  const int k = wide ? kWide : 4;
+  const int lanes = max((slice_feat + k - 1) / k, REPRO_GATHER_MIN_GROUP);
+  auto by_group = [&](auto kc) {
+    if (lanes <= 4) return fn(std::true_type{},
+                              std::integral_constant<int, 4>{}, kc);
+    if (lanes <= 8) return fn(std::true_type{},
+                              std::integral_constant<int, 8>{}, kc);
+    if (lanes <= 16) return fn(std::true_type{},
+                               std::integral_constant<int, 16>{}, kc);
+    return fn(std::true_type{}, std::integral_constant<int, 32>{}, kc);
+  };
+  return wide ? by_group(KcWide{}) : by_group(Kc4{});
 }
 
 extern "C" const char* repro_cuda_error_string(int code) {

@@ -140,6 +140,36 @@ def test_cpu_calls_launch_no_kernel():
                                    "dequantize": 0, "block_ell_spmm": 0}
 
 
+def test_feature_slices_fit_the_l2_budget(monkeypatch):
+    """The gathers' feature slices: one where B fits the L2 budget, or
+    where F is no wider than a unit (512 bytes of a row: reddit's f32
+    features at F = 128 and 64); else more than one, of whole units,
+    covering F, each within the budget unless one unit alone exceeds it
+    (reddit-sized f32 B at F = 512: 4 slices of 128 features); the budget
+    is read at call time."""
+    fs = ell_mod.feature_slices
+    assert fs(232965, 128, 1) == (1, 128)
+    assert fs(232965, 128, 4) == (1, 128)
+    assert fs(232965, 64, 4) == (1, 64)
+    assert fs(232965, 512, 4) == (4, 128)
+    assert fs(0, 2048, 4) == (1, 2048)
+    for nodes, feat, itemsize, budget in (
+            (232965, 1024, 2, None), (1000, 130, 4, 1), (1000, 520, 4, 1e6),
+            (300, 2048, 1, 300 * 600), (10, 3, 4, 1), (10, 128, 4, 1),
+            (4096, 384, 4, 4096 * 256 * 4), (7, 1000, 2, 7 * 600)):
+        slices, width = fs(nodes, feat, itemsize, budget)
+        budget = budget or ell_mod.L2_SLICE_BUDGET
+        unit = ell_mod.SLICE_BYTES // itemsize
+        if nodes * feat * itemsize <= budget or feat <= unit:
+            assert (slices, width) == (1, feat)
+            continue
+        assert slices > 1 and width % unit == 0
+        assert -(-feat // width) == slices
+        assert nodes * width * itemsize <= budget or width == unit
+    monkeypatch.setattr(ell_mod, "L2_SLICE_BUDGET", 1)
+    assert fs(10, 130, 4) == (2, 128)
+
+
 def test_build_names_sm90a_and_tracks_sources():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     for name in _build.KERNELS:
