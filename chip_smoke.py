@@ -22,8 +22,7 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    to three width buckets and a partial partition, plus a "full" block
    more than 1024 slots wide; then the two group-gather kernels
    (``ell_spmm``, ``block_ell_spmm``) at F in {1, 3, 64, 128, 130, 2048},
-   each in one feature slice and in 512-byte slices (a 1-byte L2 slice
-   budget), on f32, uint8 and uint16 B, at W = 1, W = 2048 (a hub row of
+   on f32, uint8 and uint16 B, at W = 1, W = 2048 (a hub row of
    2048 live slots) and on rows with no live slot, the blocked kernel on a
    3000-slot "full" block and bit-identical to its plain version in f32.
 4. Main path: ``make_dataset("reddit", scale=1.0, max_avg_degree=None)``
@@ -62,8 +61,7 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    ``torch.sparse.mm`` on the CSR of the same live slots, ``ell_spmm`` on
    the same live slots and ``ell_spmm`` at W=128 on the same graph.  Both
    SpMMs also at the GCN's layer-2 width (F = 64, its hidden features),
-   f32 and uint8; each with the feature slices it took (``slices``) and
-   its time in one slice (``one_slice_ms``).  The dequantization beside
+   f32 and uint8.  The dequantization beside
    ``torch.addcmul``, Eq. 2 in one call.
 
 The last two lines of standard output are the ``{"kernels": [...]}`` line
@@ -71,7 +69,6 @@ and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
-import contextlib
 import functools
 import json
 import statistics
@@ -100,8 +97,7 @@ TIMING_REPS = 7     # batches; the median is kept
 PLAIN_REPS = 3      # single calls of a plain version; the median is kept
 PARITY_HIDDEN = (1, 5, 41)  # fused-layer widths H of phase 3
 #: F of phase 3's gather cases: 1 and 3 (scalar loads), 64 and 128 (vector
-#: loads; 16- and 32-lane rows), 130 (ragged), 2048 (16 passes in one
-#: slice, or 16 slices)
+#: loads; 16- and 32-lane rows), 130 (ragged), 2048 (16 passes)
 GATHER_FEATS = (1, 3, 64, 128, 130, 2048)
 #: per-block (strategy, width) cycle of the blocked parity cases
 BLOCK_CONFIGS = (("aes", 16), ("full", 0), ("sfs", 8), ("afs", 64))
@@ -280,22 +276,8 @@ def wide_full_graph(P, device):
                             device=device)
 
 
-@contextlib.contextmanager
-def slice_budget(P, budget):
-    """The gathers' L2 slice budget set to ``budget`` bytes for the block:
-    1 cuts B into slices of one 512-byte unit of a row wherever F is wider
-    (f32 F > 128), a huge one keeps F whole."""
-    old = P.ell_mod.L2_SLICE_BUDGET
-    P.ell_mod.L2_SLICE_BUDGET = budget
-    try:
-        yield
-    finally:
-        P.ell_mod.L2_SLICE_BUDGET = old
-
-
 def check_gather_parity(P, graphs, device, errs) -> None:
-    """The two kernels of the group gather at every F of GATHER_FEATS, in
-    one feature slice and in 512-byte slices (a 1-byte L2 budget), on
+    """The two kernels of the group gather at every F of GATHER_FEATS, on
     f32, uint8 and uint16 B: ``ell_spmm`` on the hub graph at W = 1 and
     W = 2048 (its hub row 2048 live slots) and on the graph with empty
     rows (rows of 0 live slots), to 1e-5 (f32) and 1e-4 (quantized);
@@ -327,31 +309,22 @@ def check_gather_parity(P, graphs, device, errs) -> None:
                     want = P.block_mod.block_ell_spmm_plain(
                         bell.val, bell.col, bell.live_w, b, bell.widths, 16,
                         wide.num_rows, buckets, meta)
-
-                    def run():
-                        return P.ops.block_ell_spmm(
-                            bell, b, quantized_meta=meta, buckets=buckets)
+                    got = P.ops.block_ell_spmm(bell, b, quantized_meta=meta,
+                                               buckets=buckets)
                 else:
                     key = "ell_spmm" + ("_u8" if tag == "_u8" else tag)
                     tol = 1e-4 if meta else 1e-5
                     live = P.ell_live_widths(ell.val, ell.col)
                     want = P.ell_mod.ell_spmm_plain(ell.val, ell.col, live, b,
                                                     meta)
-
-                    def run():
-                        return P.ops.ell_spmm(ell, b, live,
-                                              quantized_meta=meta)
-                for budget in (P.ell_mod.L2_SLICE_BUDGET, 1):
-                    with slice_budget(P, budget):
-                        got = run()
-                    torch.testing.assert_close(
-                        got, want, rtol=tol, atol=tol,
-                        msg=lambda m, k=key, n=gname, f=feat, bg=budget:
-                        f"{k} {n} F={f} budget={bg}: {m}")
-                    errs.setdefault(key, []).append(
-                        float((got - want).abs().max()) if got.numel()
-                        else 0.0)
-                    calls += 1
+                    got = P.ops.ell_spmm(ell, b, live, quantized_meta=meta)
+                torch.testing.assert_close(
+                    got, want, rtol=tol, atol=tol,
+                    msg=lambda m, k=key, n=gname, f=feat:
+                    f"{k} {n} F={f}: {m}")
+                errs.setdefault(key, []).append(
+                    float((got - want).abs().max()) if got.numel() else 0.0)
+                calls += 1
     log({"phase": "parity_gather", "feats": list(GATHER_FEATS),
          "calls": calls, "widest_full_block": max(bell.widths)})
 
@@ -769,27 +742,14 @@ def gcn_hidden(P, ds, ell, live):
     return torch.relu(P.ops.ell_spmm(ell, x, live) @ w1 + b1).contiguous()
 
 
-def slice_count(P, b) -> int:
-    """The feature slices S the gathers take for B (``feature_slices``)."""
-    return P.ell_mod.feature_slices(b.shape[0], b.shape[1],
-                                    b.element_size())[0]
-
-
-def one_slice_ms(P, timer, fn) -> float:
-    """``fn``'s time with F kept whole, in one feature slice."""
-    with slice_budget(P, 2 ** 62):
-        return timer(fn)
-
-
 def kernel_times(P, ds, device, launches, errs, timer, plain_timer):
     """Phase 5: each kernel at the main path's shapes (GCN's adjacency,
     W=128, the F=128 input features, the GCN's two layers) against its
     plain version (timed by ``plain_timer``: it repeats the kernel's
     arithmetic and is no yardstick of speed), with its bound and, for the
     SpMM, ``torch.sparse.mm`` on the same matrix; the ELL SpMM also at
-    the GCN's layer-2 width (F = 64, its hidden features), f32 and uint8,
-    and each SpMM time beside the same call in one feature slice.  Returns
-    the entries and the hidden features."""
+    the GCN's layer-2 width (F = 64, its hidden features), f32 and uint8.
+    Returns the entries and the hidden features."""
     torch, ops = P.torch, P.ops
     adj, x = ds.gcn_adj, ds.features
     ell = ops.aes_sample(adj, W_MAIN)
@@ -871,20 +831,13 @@ def kernel_times(P, ds, device, launches, errs, timer, plain_timer):
                                                           live, b)),
                "bound_ms": bound(ell_in + uniq * f * 4 + rows * f * 4,
                                  2.0 * n_live * f)[0],
-               "library_ms": timer(lambda: torch.sparse.mm(a_sparse, b)),
-               "slices": slice_count(P, b),
-               "one_slice_ms": one_slice_ms(
-                   P, timer, lambda: ops.ell_spmm(ell, b, live))}
-
-        def u8():
-            return ops.ell_spmm(ell, qb.q, live, quantized_meta=mb)
-        out["u8"] = {"ms": timer(u8),
+               "library_ms": timer(lambda: torch.sparse.mm(a_sparse, b))}
+        out["u8"] = {"ms": timer(lambda: ops.ell_spmm(
+                         ell, qb.q, live, quantized_meta=mb)),
                      "plain_ms": plain_timer(lambda: spmm_plain(
                          ell.val, ell.col, live, qb.q, mb)),
                      "bound_ms": bound(ell_in + uniq * f + rows * f * 4,
-                                       2.0 * n_live * f)[0],
-                     "slices": slice_count(P, qb.q),
-                     "one_slice_ms": one_slice_ms(P, timer, u8)}
+                                       2.0 * n_live * f)[0]}
         return out
 
     f64 = ell_width(hidden)
@@ -895,16 +848,12 @@ def kernel_times(P, ds, device, launches, errs, timer, plain_timer):
           cu="ell_spmm.cu", replaces="src/repro/kernels/ell_spmm.py:111",
           gather_bound_ms=(ell_in + n_live * feat * 4 + out_bytes)
           / HBM_BYTES_PER_S * 1e3,
-          slices=slice_count(P, x),
-          one_slice_ms=one_slice_ms(P, timer,
-                                    lambda: ops.ell_spmm(ell, x, live)),
           u8={"ms": timer(lambda: ops.ell_spmm(ell, qf.q, live,
                                                quantized_meta=meta)),
               "plain_ms": plain_timer(lambda: spmm_plain(
                   ell.val, ell.col, live, qf.q, meta)),
               "bound_ms": bound(ell_in + uniq * feat + out_bytes, flops)[0],
-              "max_abs_err": max(errs["ell_spmm_u8"]),
-              "slices": slice_count(P, qf.q)},
+              "max_abs_err": max(errs["ell_spmm_u8"])},
           f64=f64,
           shape={"rows": rows, "W": W_MAIN, "F": feat, "live_slots": n_live,
                  "distinct_b_rows": uniq})
@@ -935,8 +884,8 @@ def block_entry(P, ds, plan, hidden, launches, errs, timer, plain_timer,
     f32 and u8, beside its plain version, ``torch.sparse.mm`` on the CSR of
     the same live slots, ``ell_spmm`` on the same live slots (the BlockELL
     padded to one ELL of its widest width) and ``ell_spmm`` at W=128 on the
-    same graph; the same at the GCN's layer-2 width (F = 64, ``hidden``);
-    each blocked time also in one feature slice."""
+    same graph; the same at the GCN's layer-2 width (F = 64,
+    ``hidden``)."""
     torch, ops = P.torch, P.ops
     bell, x, buckets = plan.bell, ds.features, plan.buckets
     rows, feat, br = bell.num_rows, x.shape[1], bell.block_rows
@@ -1007,15 +956,10 @@ def block_entry(P, ds, plan, hidden, launches, errs, timer, plain_timer,
            "library_ms": timer(lambda: torch.sparse.mm(a_sparse, hidden)),
            "ell_spmm_same_operand_ms": timer(
                lambda: ops.ell_spmm(same, hidden, live_w)),
-           "slices": slice_count(P, hidden),
-           "one_slice_ms": one_slice_ms(P, timer, lambda: kernel(hidden)),
            "u8": {"ms": timer(lambda: kernel(qh.q, mh)),
                   "plain_ms": plain_timer(lambda: plain(qh.q, mh)),
                   "bound_ms": bound(ell_in + uniq * f2 + rows * f2 * 4,
-                                    2.0 * n_live * f2)[0],
-                  "slices": slice_count(P, qh.q),
-                  "one_slice_ms": one_slice_ms(P, timer,
-                                               lambda: kernel(qh.q, mh))}}
+                                    2.0 * n_live * f2)[0]}}
     return {
         "name": "block_ell_spmm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/block_ell_spmm.cu",
@@ -1032,13 +976,10 @@ def block_entry(P, ds, plan, hidden, launches, errs, timer, plain_timer,
         "ell_spmm_same_operand_host_ms": host_ms(
             torch, lambda: ops.ell_spmm(same, x, live_w)),
         "ell_spmm_w128_ms": ell_ms,
-        "slices": slice_count(P, x),
-        "one_slice_ms": one_slice_ms(P, timer, kernel),
         "u8": {"ms": timer(lambda: kernel(qf.q, meta)),
                "plain_ms": plain_timer(lambda: plain(qf.q, meta)),
                "bound_ms": bound(ell_in + uniq * feat + rows * feat * 4,
-                                 flops)[0],
-               "slices": slice_count(P, qf.q)},
+                                 flops)[0]},
         "f64": f64,
         "shape": {"rows": rows, "F": feat, "block_rows": br,
                   "blocks": bell.num_blocks, "layout": plan.row_layout,
@@ -1222,6 +1163,11 @@ def main() -> None:
          "wall_s": time.perf_counter() - t0,
          "libraries": [P._build.library_path(k).name
                        for k in P._build.KERNELS]})
+    # ptxas's registers and spill bytes of every kernel instantiation
+    log({"phase": "build_resources",
+         **{k: {fn: [r["registers"], r["spill_bytes"]]
+                for fn, r in P._build.resources(k).items()}
+            for k in P._build.KERNELS}})
 
     # -- 3. kernel parity on small graphs -----------------------------------
     errs = {"aes_sample": [], "ell_spmm": [], "fused_aes_spmm": [],

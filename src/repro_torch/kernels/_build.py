@@ -6,7 +6,9 @@ interface (no PyTorch headers, so a build takes seconds, not minutes),
 compiled for ``sm_90a`` into ``kernels/build/`` — a directory git ignores.
 A library's file name carries a hash of its sources and flags, so an edit
 rebuilds it and an unchanged source is loaded as built.  :func:`build`
-starts one ``nvcc`` per source, all at once.
+starts one ``nvcc`` per source, all at once, and keeps each build's
+output beside its library; :func:`resources` reads ptxas's registers and
+spills from it.
 
 Nothing here runs at import: ``nvcc`` exists only on the machine with the
 card.
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -28,7 +31,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 KERNELS = ("ell_spmm", "aes_sample", "fused_spmm", "fused_layer", "dequant",
            "block_ell_spmm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict = {}
 
@@ -80,10 +83,63 @@ def build(names=KERNELS) -> dict:
             failures.append(f"nvcc {name}.cu exited {proc.returncode}:\n{log}")
             tmp.unlink(missing_ok=True)
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
     if failures:
         raise RuntimeError("\n".join(failures))
     return seconds
+
+
+def kernel_name(mangled: str) -> str:
+    """``name<args>`` of a mangled entry function: its last name (after
+    any namespace) and its template arguments as types (f32, u8, u16) and
+    numbers; ``mangled`` itself where it is not of that form."""
+    i = 3 if mangled.startswith("_ZN") else 2
+    name = None
+    while m := re.match(r"\d+", mangled[i:]):
+        i += m.end()
+        name, i = mangled[i:i + int(m.group())], i + int(m.group())
+    if not mangled.startswith("_Z") or not name:
+        return mangled
+    t = re.match(r"I(.*?)E+v", mangled[i:])
+    types = {"f": "f32", "h": "u8", "t": "u16"}
+    args = [n or types.get(c, c) for n, c in
+            re.findall(r"L[bi](\d+)E?|([a-z])", t.group(1) if t else "")]
+    return name + (f"<{','.join(args)}>" if args else "")
+
+
+def parse_ptxas(log: str) -> dict:
+    """``{kernel: {"registers": n, "spill_bytes": stores + loads}}`` of
+    each entry function in an ``nvcc -Xptxas -v`` log, under
+    :func:`kernel_name` of its mangled name."""
+    out, props, cur = {}, {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = kernel_name(m.group(1))
+            out[cur] = {"registers": 0, "spill_bytes": 0}
+            continue
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            props = out.get(kernel_name(m.group(1)), {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and "spill_bytes" in props:
+            props["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            out[cur]["registers"] = int(m.group(1))
+    return out
+
+
+def resources(name: str) -> dict:
+    """Registers and spill bytes of each kernel of ``csrc/<name>.cu`` as
+    ptxas built it (:func:`parse_ptxas` of the build's log); empty for a
+    library built without its log."""
+    log = library_path(name).with_suffix(".log")
+    return parse_ptxas(log.read_text()) if log.exists() else {}
 
 
 def load(name: str, signatures: dict) -> ctypes.CDLL:

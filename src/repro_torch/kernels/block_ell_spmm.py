@@ -5,8 +5,7 @@ uint8/uint16 B with Eq. 2 applied in the gather.
 
 The kernel (``csrc/block_ell_spmm.cu``) replaces the Pallas TPU kernel
 ``src/repro/kernels/ell_spmm.py:block_ell_spmm``.  It is bound by bytes;
-the source says what its design does about that.  It takes the ELL SpMM's
-L2-sized feature slices (``ell_spmm.feature_slices``).
+the source says what its design does about that.
 :func:`block_ell_spmm_plain` is its plain PyTorch version, which the
 wrapper runs for CPU tensors.
 """
@@ -19,8 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ell_spmm import (_dequant, _eq2_constants,
-                                          feature_slices)
+from repro_torch.kernels.ell_spmm import _dequant, _eq2_constants
 from repro_torch.kernels.ell_spmm import _QUANT_DTYPES as _ELL_QUANT
 from repro_torch.kernels.ref import ell_spmm_rowloop
 
@@ -28,8 +26,8 @@ _QUANT_DTYPES = {dt: fn.replace("ell_spmm", "block_ell_spmm")
                  for dt, fn in _ELL_QUANT.items()}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # (blocks, n_blocks, live_w, val, col, b, out, block_rows, num_rows,
-#  feat, slice_feat, max_width[, &scale, &x_min], stream)
-_HEAD = [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
+#  feat, max_width[, &scale, &x_min], stream)
+_HEAD = [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I]
 _SIGNATURES = {"block_ell_spmm_f32": _HEAD + [_P],
                **{fn: _HEAD + [_P] * 3 for fn in _QUANT_DTYPES.values()}}
 
@@ -155,7 +153,6 @@ def block_ell_spmm(val: torch.Tensor, col: torch.Tensor, live_w: torch.Tensor,
         fn = getattr(lib, _QUANT_DTYPES[b.dtype])
         eq2 = [_build.ptr(t) for t in _eq2_constants(quantized_meta,
                                                       val.device)]
-    slice_feat = feature_slices(b.shape[0], feat, b.element_size())[1]
     start = 0
     with torch.cuda.device(val.device):
         stream = _build.stream_handle(val.device)
@@ -165,7 +162,7 @@ def block_ell_spmm(val: torch.Tensor, col: torch.Tensor, live_w: torch.Tensor,
                 continue
             code = fn(ctypes.c_void_p(table + 24 * start), n,
                       *[_build.ptr(t) for t in (live_w, val, col, b, out)],
-                      block_rows, num_rows, feat, slice_feat,
+                      block_rows, num_rows, feat,
                       max(widths[i] for i in blocks), *eq2, stream)
             _build.check(lib, code, "block_ell_spmm")
             block_ell_spmm.launches += 1

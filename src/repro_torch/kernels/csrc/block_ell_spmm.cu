@@ -19,8 +19,7 @@
 // output row with common.cuh:group_gather_row, the gather of ell_spmm.cu
 // (4-32 lanes a row, one vector load a lane a slot, 16 bytes where the
 // launch's blocks hold at most 32 slots a row, 4 slots' B rows in flight a
-// lane, feature slices as the grid's slowest dimension where B is larger
-// than the L2 budget).  A group reads its block's (id, offset, width)
+// lane).  A group reads its block's (id, offset, width)
 // entry through the read-only cache (__ldg): the rows of a CTA (4-32)
 // share it almost always, so it comes from L2 once a CTA.  It then walks
 // the row's live slots from global memory in chunks of one slot a lane,
@@ -31,10 +30,10 @@
 // written straight to its natural position in the one [num_rows, F]
 // output, so no reassembly pass follows; rows of blocks outside the
 // launch are left as they are (the wrapper zeroes the output for a
-// partial partition).  Padded rows of the last block are never written.  The gather rounds after the
-// product and after the sum (kGatherRoundTwice), as the plain version
-// does, so a "full" row thousands of slots long stays bit-identical to it
-// (with FMA such a row drifted past 1e-5).
+// partial partition).  Padded rows of the last block are never written.
+// The gather rounds after the product and after the sum, as the plain
+// version does, so a "full" row thousands of slots long stays
+// bit-identical to it (with FMA such a row drifted past 1e-5).
 #include <cstdint>
 
 #include "common.cuh"
@@ -46,14 +45,13 @@ constexpr int kWarpsPerBlock = 4;
 // blocks: int64 [n_blocks, 3], (block id, slot offset, width) of each block
 // this launch covers, in launch order.
 template <typename T, bool kVec, int G, int K>
-__global__ void REPRO_GATHER_BOUNDS(32 * kWarpsPerBlock)
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
 block_ell_spmm_kernel(const int64_t* __restrict__ blocks, int n_blocks,
                       const int* __restrict__ live_w,
                       const float* __restrict__ val,
                       const int* __restrict__ col, const T* __restrict__ b,
                       float* __restrict__ out, int block_rows, int num_rows,
-                      int feat, int slice_feat,
-                      const float* __restrict__ scale_p,
+                      int feat, const float* __restrict__ scale_p,
                       const float* __restrict__ x_min_p) {
   constexpr int kRowsPerWarp = 32 / G;
   const int lane = static_cast<int>(threadIdx.x);
@@ -75,39 +73,31 @@ block_ell_spmm_kernel(const int64_t* __restrict__ blocks, int n_blocks,
     seg = __ldg(entry + 1) + static_cast<int64_t>(r) * width;
   }
   const bool in = row < num_rows;  // else past the launch or a padded row
-  const int f_lo = static_cast<int>(blockIdx.y) * slice_feat;
   const float2 eq2c = eq2_constants(scale_p, x_min_p);
   group_gather_row<G, K, kVec>(
       val + seg, col + seg, in ? width : 0,
-      in ? min(__ldg(live_w + row), width) : 0, b, feat, f_lo,
-      min(f_lo + slice_feat, feat), eq2c.x, eq2c.y,
+      in ? min(__ldg(live_w + row), width) : 0, b, feat, eq2c.x, eq2c.y,
       in ? out + row * feat : nullptr, lane);
 }
 
 template <typename T>
 int launch(const int64_t* blocks, int n_blocks, const int* live_w,
            const float* val, const int* col, const T* b, float* out,
-           int block_rows, int num_rows, int feat, int slice_feat,
-           int max_width, const float* scale, const float* x_min,
-           void* stream) {
-  // a slice is all of F or whole 16-byte lanes (the wrapper's slices are
-  // whole 512-byte passes)
-  if (slice_feat < 1 || (slice_feat < feat && slice_feat % 16 != 0))
-    return static_cast<int>(cudaErrorInvalidValue);
+           int block_rows, int num_rows, int feat, int max_width,
+           const float* scale, const float* x_min, void* stream) {
   const int64_t rows = static_cast<int64_t>(n_blocks) * block_rows;
   return dispatch_gather(
-      b, feat, slice_feat, max_width, [&](auto kvec, auto group, auto lanef) {
+      b, feat, max_width, [&](auto kvec, auto group, auto lanef) {
         constexpr int G = decltype(group)::value;
         constexpr int rows_per_block = kWarpsPerBlock * 32 / G;
         const dim3 block(32, kWarpsPerBlock);
         const dim3 grid(static_cast<unsigned>((rows + rows_per_block - 1) /
-                                              rows_per_block),
-                        (feat + slice_feat - 1) / slice_feat);
+                                              rows_per_block));
         block_ell_spmm_kernel<T, decltype(kvec)::value, G,
                               decltype(lanef)::value>
             <<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
                 blocks, n_blocks, live_w, val, col, b, out, block_rows,
-                num_rows, feat, slice_feat, scale, x_min);
+                num_rows, feat, scale, x_min);
         return static_cast<int>(cudaGetLastError());
       });
 }
@@ -118,10 +108,9 @@ extern "C" int block_ell_spmm_f32(const int64_t* blocks, int n_blocks,
                                   const int* live_w, const float* val,
                                   const int* col, const float* b, float* out,
                                   int block_rows, int num_rows, int feat,
-                                  int slice_feat, int max_width,
-                                  void* stream) {
+                                  int max_width, void* stream) {
   return launch(blocks, n_blocks, live_w, val, col, b, out, block_rows,
-                num_rows, feat, slice_feat, max_width,
+                num_rows, feat, max_width,
                 static_cast<const float*>(nullptr),
                 static_cast<const float*>(nullptr), stream);
 }
@@ -130,20 +119,19 @@ extern "C" int block_ell_spmm_u8(const int64_t* blocks, int n_blocks,
                                  const int* live_w, const float* val,
                                  const int* col, const uint8_t* b, float* out,
                                  int block_rows, int num_rows, int feat,
-                                 int slice_feat, int max_width,
-                                 const float* scale, const float* x_min,
-                                 void* stream) {
+                                 int max_width, const float* scale,
+                                 const float* x_min, void* stream) {
   return launch(blocks, n_blocks, live_w, val, col, b, out, block_rows,
-                num_rows, feat, slice_feat, max_width, scale, x_min, stream);
+                num_rows, feat, max_width, scale, x_min, stream);
 }
 
 extern "C" int block_ell_spmm_u16(const int64_t* blocks, int n_blocks,
                                   const int* live_w, const float* val,
                                   const int* col, const uint16_t* b,
                                   float* out, int block_rows, int num_rows,
-                                  int feat, int slice_feat, int max_width,
+                                  int feat, int max_width,
                                   const float* scale, const float* x_min,
                                   void* stream) {
   return launch(blocks, n_blocks, live_w, val, col, b, out, block_rows,
-                num_rows, feat, slice_feat, max_width, scale, x_min, stream);
+                num_rows, feat, max_width, scale, x_min, stream);
 }

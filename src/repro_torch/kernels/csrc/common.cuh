@@ -1,9 +1,9 @@
 // Shared device code for the kernels: the Table 1 strategy of one row
-// and the inverse slot map of Algorithm 1; Eq. 2; the 4-features-a-lane
-// vector loads of the two fused kernels; the group gather of the ELL SpMM
-// and the blocked SpMM (4-32 lanes a row, one 4- to 16-byte load a lane a
-// slot, several B rows in flight a lane, a feature slice a grid row);
-// plus the C entry point that turns a CUDA error code into text for the
+// and the inverse slot map of Algorithm 1; Eq. 2; the vector loads of B
+// that every gather takes (a lane's K features of a B row in one 4- to
+// 16-byte load, turned into f32 at its FMA); the group gather of the ELL
+// SpMM and the blocked SpMM (4-32 lanes a row, several B rows in flight a
+// lane); plus the C entry point that turns a CUDA error code into text for the
 // Python wrappers.
 //
 // The sampler arithmetic is int32, as in the reference sampler
@@ -92,26 +92,6 @@ __device__ __forceinline__ float2 eq2_constants(const float* scale_p,
                      x_min_p != nullptr ? *x_min_p : 0.f);
 }
 
-// Features f..f+3 of one B row (row_base = its first element), for the
-// gathers that give each lane 4 consecutive features (the fused kernels).
-// kVec: one 16-byte (float), 8-byte (uint16) or 4-byte (uint8) load, kept
-// as loaded (Feature4) so that a lane holds several slots' loads in few
-// registers, and turned into f32 at its FMA (feature4_value); the caller
-// guarantees F % 4 == 0 and a base aligned to that size, so a lane is
-// wholly inside the row or wholly past it (then 0).  Otherwise the masked
-// scalar path, converted at load: features at or past F read as 0.
-// uint8/uint16 go through Eq. 2 (eq2, rounded twice) either way, on the
-// integer's exact f32 value.
-template <typename T> struct Vec4Of;
-template <> struct Vec4Of<float> { using type = float4; };
-template <> struct Vec4Of<uint16_t> { using type = uint2; };
-template <> struct Vec4Of<uint8_t> { using type = uint32_t; };
-
-template <bool kVec, typename T> struct Feature4 { using type = float4; };
-template <typename T> struct Feature4<true, T> {
-  using type = typename Vec4Of<T>::type;
-};
-
 // The f32 value of the integer in bytes [lo, hi] of w (selector picks
 // them into the mantissa of 2^23, exact below 2^23): one byte permute and
 // one add, where a conversion instruction runs at a quarter rate.
@@ -119,108 +99,15 @@ __device__ __forceinline__ float int_field(uint32_t w, uint32_t selector) {
   return __uint_as_float(__byte_perm(w, 0x4B000000u, selector)) - 8388608.f;
 }
 
-template <bool kVec, typename T>
-__device__ __forceinline__ typename Feature4<kVec, T>::type load_feature4(
-    const T* __restrict__ b, int64_t row_base, int f, int feat, float scale,
-    float x_min) {
-  using V = typename Vec4Of<T>::type;
-  if constexpr (kVec) {
-    if (f >= feat) return V{};
-    return __ldg(reinterpret_cast<const V*>(b + row_base + f));
-  } else {
-    float x[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      x[j] = f + j < feat ? load_feature(b, row_base + f + j, scale, x_min)
-                          : 0.f;
-    return make_float4(x[0], x[1], x[2], x[3]);
-  }
-}
-
-__device__ __forceinline__ float4 eq2_4(float a, float b, float c, float d,
-                                        float scale, float x_min) {
-  return make_float4(eq2(a, scale, x_min), eq2(b, scale, x_min),
-                     eq2(c, scale, x_min), eq2(d, scale, x_min));
-}
-__device__ __forceinline__ float4 vec4_value(const float4& x, float,
-                                             float) {
-  return x;
-}
-__device__ __forceinline__ float4 vec4_value(const uint2& x, float scale,
-                                             float x_min) {
-  return eq2_4(int_field(x.x, 0x7410u), int_field(x.x, 0x7432u),
-               int_field(x.y, 0x7410u), int_field(x.y, 0x7432u), scale,
-               x_min);
-}
-__device__ __forceinline__ float4 vec4_value(uint32_t x, float scale,
-                                             float x_min) {
-  return eq2_4(int_field(x, 0x7540u), int_field(x, 0x7541u),
-               int_field(x, 0x7542u), int_field(x, 0x7543u), scale, x_min);
-}
-
-// The f32 features of a load_feature4 result; 0 for a lane past F.
-template <bool kVec, typename T>
-__device__ __forceinline__ float4 feature4_value(
-    const typename Feature4<kVec, T>::type& x, int f, int feat, float scale,
-    float x_min) {
-  if constexpr (kVec) {
-    return f < feat ? vec4_value(x, scale, x_min)
-                    : make_float4(0.f, 0.f, 0.f, 0.f);
-  } else {
-    return x;
-  }
-}
-
-// acc += v * x, one FMA per feature.
-__device__ __forceinline__ void fma4(float v, const float4& x, float4& acc) {
-  acc.x = fmaf(v, x.x, acc.x);
-  acc.y = fmaf(v, x.y, acc.y);
-  acc.z = fmaf(v, x.z, acc.z);
-  acc.w = fmaf(v, x.w, acc.w);
-}
-
-// The group gather of the ELL SpMM and the blocked SpMM.  Its settings,
-// each measured against the alternatives on the reddit main path
-// (PERF.md); a -D flag of the same name builds a variant for side-by-side
-// timing (scripts/gather_variants.py):
-// - REPRO_GATHER_UNROLL: B-row loads a lane issues before their FMAs (2
-//   and 8 were slower than 4).
-#ifndef REPRO_GATHER_UNROLL
-#define REPRO_GATHER_UNROLL 4
-#endif
-// - REPRO_GATHER_MIN_GROUP: the fewest lanes a row gets (32: one row a
-//   warp, slower wherever a row needs fewer lanes).
-#ifndef REPRO_GATHER_MIN_GROUP
-#define REPRO_GATHER_MIN_GROUP 4
-#endif
-// - REPRO_GATHER_WIDE_LANES_MAX: rows of at most this many slots get
-//   16-byte lanes (several rows a warp), longer ones 4 features a lane.
-#ifndef REPRO_GATHER_WIDE_LANES_MAX
-#define REPRO_GATHER_WIDE_LANES_MAX 32
-#endif
-// - REPRO_GATHER_FMA: contract a*b+c into FMA.  By default both gathers
-//   round after the product and after the sum, as the plain version does,
-//   so a sum is bit-identical to it at any row length (with FMA, a row of
-//   2048 live slots drifted 2.1e-5 from it, past the 1e-5 tolerance).
-#ifdef REPRO_GATHER_FMA
-constexpr bool kGatherRoundTwice = false;
-#else
-constexpr bool kGatherRoundTwice = true;
-#endif
-// - REPRO_GATHER_MIN_BLOCKS: ask ptxas to fit this many blocks an SM
-//   (fewer registers a thread, more warps an SM; 12 and 16 were slower).
-//   By default ptxas chooses: naming 1 block, which should change nothing,
-//   made it take more registers and the kernels slower.
-#ifdef REPRO_GATHER_MIN_BLOCKS
-#define REPRO_GATHER_BOUNDS(t) __launch_bounds__(t, REPRO_GATHER_MIN_BLOCKS)
-#else
-#define REPRO_GATHER_BOUNDS(t) __launch_bounds__(t)
-#endif
-
-// A lane's loaded share of a B row in the group gather: K features of T,
-// as loaded (kVec: K * sizeof(T) bytes, one 4-, 8- or 16-byte load, turned
-// into f32 at the FMA) or, on the masked scalar path, as f32 features
-// converted at load (0 past F).
+// A lane's share of a B row in every gather: K consecutive features of T
+// from feature f.  kVec: K * sizeof(T) bytes in one 4-, 8- or 16-byte load
+// (a float4, or a uint2 of uint16, or a uint32_t of uint8 at K = 4), kept
+// as loaded so that a lane holds several slots' loads in few registers,
+// and turned into f32 at its FMA (lane_fma); the caller guarantees F a
+// multiple of K, a base aligned to the load, and f < F.  Otherwise the
+// masked scalar path, converted at load: features at or past F read as 0.
+// uint8/uint16 go through Eq. 2 (eq2, rounded twice) either way, on the
+// integer's exact f32 value.
 template <int kWords> struct RawWords;
 template <> struct RawWords<1> { using type = uint32_t; };
 template <> struct RawWords<2> { using type = uint2; };
@@ -325,8 +212,19 @@ __device__ __forceinline__ void lane_store(float* orow, int f, int feat,
   }
 }
 
-// dst[f] = sum_{k < live} vrow[k] * B[crow[k], f] for f_lo <= f < f_hi,
-// computed by the group of G lanes that holds one row; the 32 / G groups
+// The group gather of the ELL SpMM and the blocked SpMM; each setting was
+// measured against its alternatives on the reddit main path (PERF.md):
+// - B-row loads a lane issues before their FMAs (2 and 8 were slower).
+constexpr int kGatherUnroll = 4;
+// - The fewest lanes a row gets (32, one row a warp, was slower wherever
+//   a row needs fewer lanes).
+constexpr int kGatherMinGroup = 4;
+// - Rows of at most this many slots get 16-byte lanes (several rows a
+//   warp), longer ones 4 features a lane.
+constexpr int kGatherWideLanesMax = 32;
+
+// dst[f] = sum_{k < live} vrow[k] * B[crow[k], f] for f < F, computed by
+// the group of G lanes that holds one row; the 32 / G groups
 // of a warp hold 32 / G rows, and every lane of the warp calls this
 // together (the loops are bounded by the warp's longest row, so the
 // shuffles see the whole warp).  Each lane owns K consecutive features of
@@ -334,11 +232,13 @@ __device__ __forceinline__ void lane_store(float* orow, int f, int feat,
 // K and B aligned to that size), else masked scalar loads converted at
 // load.  The group loads G slots of (val, col) at once, one per lane, and
 // broadcasts them with shuffles; the next G slots load while this chunk's
-// B rows do.  Each lane issues the B loads of up to REPRO_GATHER_UNROLL
-// slots before their FMAs, so a row's B rows are in flight together, not
-// one after the other.  Sums run in slot order per feature with f32
-// accumulators, rounded as the plain version rounds (kGatherRoundTwice),
-// so issuing loads early changes no result.  uint8/uint16 B go through
+// B rows do.  Each lane issues the B loads of up to kGatherUnroll slots
+// before their FMAs, so a row's B rows are in flight together, not one
+// after the other.  Sums run in slot order per feature with f32
+// accumulators, rounded after the product and after the sum as the plain
+// version rounds (lane_fma<true>; with FMA a row of 2048 live slots
+// drifted 2.1e-5 from it, past the 1e-5 tolerance), so issuing loads
+// early changes no result.  uint8/uint16 B go through
 // Eq. 2 (eq2, rounded twice) on the integer's exact f32 value.  The first
 // chunk of (val, col) loads up to avail (the row's slots in memory, >=
 // live) before live is needed, so it overlaps the load of live.  A group
@@ -346,12 +246,11 @@ __device__ __forceinline__ void lane_store(float* orow, int f, int feat,
 template <int G, int K, bool kVec, typename T>
 __device__ __forceinline__ void group_gather_row(
     const float* __restrict__ vrow, const int* __restrict__ crow, int avail,
-    int live, const T* __restrict__ b, int feat, int f_lo, int f_hi,
-    float scale, float x_min, float* __restrict__ dst, int lane) {
+    int live, const T* __restrict__ b, int feat, float scale, float x_min,
+    float* __restrict__ dst, int lane) {
   constexpr unsigned kAll = 0xffffffffu;
   // the scalar path holds converted features: at most 4 slots in flight
-  constexpr int kU = kVec || REPRO_GATHER_UNROLL < 4 ? REPRO_GATHER_UNROLL
-                                                     : 4;
+  constexpr int kU = kVec || kGatherUnroll < 4 ? kGatherUnroll : 4;
   constexpr int U = kU < G ? kU : G;
   static_assert(G % U == 0, "a chunk of G slots is whole unroll steps");
   const int gl = lane % G;
@@ -362,9 +261,9 @@ __device__ __forceinline__ void group_gather_row(
     c0 = crow[gl];
   }
   const int warp_live = __reduce_max_sync(kAll, live);
-  for (int f0 = f_lo; f0 < f_hi; f0 += K * G) {
+  for (int f0 = 0; f0 < feat; f0 += K * G) {
     const int f = f0 + K * gl;
-    const bool has = f < f_hi;
+    const bool has = f < feat;
     float acc[K];
 #pragma unroll
     for (int j = 0; j < K; ++j) acc[j] = 0.f;
@@ -391,7 +290,7 @@ __device__ __forceinline__ void group_gather_row(
         for (int u = 0; u < U; ++u) {
           const float v = __shfl_sync(kAll, cv, k1 + u, G);
           if (has && k0 + k1 + u < live)
-            lane_fma<kGatherRoundTwice>(v, x[u], scale, x_min, acc);
+            lane_fma<true>(v, x[u], scale, x_min, acc);
         }
       }
       cv = nv;
@@ -401,11 +300,10 @@ __device__ __forceinline__ void group_gather_row(
   }
 }
 
-
 // Calls fn(std::bool_constant<kVec>, std::integral_constant<int, G>,
 // std::integral_constant<int, K>) for the gather variant a launch takes:
 // - K, the features a lane holds: 16 bytes of B (4 f32, 8 uint16 or 16
-//   uint8) where a row holds at most REPRO_GATHER_WIDE_LANES_MAX slots
+//   uint8) where a row holds at most kGatherWideLanesMax slots
 //   (max_width), else 4 (4, 8 or 16 bytes).  With K = 16 uint8 features a
 //   row of 128 takes 8 lanes, so 4 rows share a warp, which runs until the
 //   longest of them ends: on the reddit ELL at W = 128 (rows of 1 to 128
@@ -415,12 +313,11 @@ __device__ __forceinline__ void group_gather_row(
 //   sizeof(T) bytes (16-byte lanes that F or the base do not allow fall
 //   back to K = 4; else the masked scalar path, K = 4, G = 32).
 // - G, the lanes a row gets: the fewest of 4, 8, 16 and 32 whose K
-//   features a lane cover the slice (32 for a wider one, which takes
-//   several passes), and at least REPRO_GATHER_MIN_GROUP.
+//   features a lane cover F (32 for a wider F, which takes several
+//   passes), and at least kGatherMinGroup.
 // Returns fn's result.
 template <typename T, typename Fn>
-int dispatch_gather(const T* b, int feat, int slice_feat, int max_width,
-                    Fn&& fn) {
+int dispatch_gather(const T* b, int feat, int max_width, Fn&& fn) {
   constexpr int kWide = 16 / static_cast<int>(sizeof(T));
   using Kc4 = std::integral_constant<int, 4>;
   using KcWide = std::integral_constant<int, kWide>;
@@ -428,11 +325,11 @@ int dispatch_gather(const T* b, int feat, int slice_feat, int max_width,
     return feat % k == 0 &&
            reinterpret_cast<uintptr_t>(b) % (k * sizeof(T)) == 0;
   };
-  const bool wide = max_width <= REPRO_GATHER_WIDE_LANES_MAX && fits(kWide);
+  const bool wide = max_width <= kGatherWideLanesMax && fits(kWide);
   if (!wide && !fits(4))
     return fn(std::false_type{}, std::integral_constant<int, 32>{}, Kc4{});
   const int k = wide ? kWide : 4;
-  const int lanes = max((slice_feat + k - 1) / k, REPRO_GATHER_MIN_GROUP);
+  const int lanes = max((feat + k - 1) / k, kGatherMinGroup);
   auto by_group = [&](auto kc) {
     if (lanes <= 4) return fn(std::true_type{},
                               std::integral_constant<int, 4>{}, kc);

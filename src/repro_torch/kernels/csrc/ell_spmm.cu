@@ -23,15 +23,13 @@
 // - Each lane issues the B loads of 4 slots before their FMAs (2 and 8
 //   were slower); the row's first G (val, col) slots load beside its live
 //   width, the next G while the current G's B rows load.
-// - Feature slices: where B is larger than the wrapper's L2 budget it
-//   splits F into slices of whole 512-byte units of a row (one pass of the
-//   gather, so a slice adds no pass); the slice is the grid's y, its
-//   slowest dimension, so every row of slice 0 runs before slice 1 and
-//   each slice of B is read from device memory about once.  Narrower
-//   slices multiply each row's chain and lost (PERF.md).
+// - Rows run in row order over all of F.  L2-sized feature slices (every
+//   row of one slice before the next) lost on reddit at F = 128, where a
+//   slice narrower than F multiplies each row's chain, and paid only at
+//   F = 512, wider than any dataset of the repo (PERF.md).
 // - Slots are summed in slot order with an f32 accumulator, rounded after
-//   the product and after the sum as the plain version does
-//   (kGatherRoundTwice), so the result is bit-identical to it at any row
+//   the product and after the sum as the plain version does, so the
+//   result is bit-identical to it at any row
 //   length; with FMA a hub row of 2048 live slots drifted 2.1e-5 from it,
 //   and FMA was barely faster (PERF.md).  Ragged F or an unaligned B take
 //   masked scalar loads.
@@ -44,11 +42,11 @@ namespace {
 constexpr int kWarpsPerBlock = 4;
 
 template <typename T, bool kVec, int G, int K>
-__global__ void REPRO_GATHER_BOUNDS(32 * kWarpsPerBlock)
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
 ell_spmm_kernel(const float* __restrict__ val, const int* __restrict__ col,
                 const int* __restrict__ live_w, const T* __restrict__ b,
                 float* __restrict__ out, int rows, int width, int feat,
-                int slice_feat, const float* __restrict__ scale_p,
+                const float* __restrict__ scale_p,
                 const float* __restrict__ x_min_p) {
   constexpr int kRowsPerWarp = 32 / G;
   const int lane = static_cast<int>(threadIdx.x);
@@ -59,34 +57,26 @@ ell_spmm_kernel(const float* __restrict__ val, const int* __restrict__ col,
   const int64_t row = first + lane / G;
   const bool in = row < rows;
   const int64_t r = in ? row : first;
-  const int f_lo = static_cast<int>(blockIdx.y) * slice_feat;
   const float2 eq2c = eq2_constants(scale_p, x_min_p);
   group_gather_row<G, K, kVec>(
       val + r * width, col + r * width, in ? width : 0,
-      in ? min(live_w[r], width) : 0, b, feat, f_lo,
-      min(f_lo + slice_feat, feat), eq2c.x, eq2c.y,
+      in ? min(live_w[r], width) : 0, b, feat, eq2c.x, eq2c.y,
       in ? out + r * feat : nullptr, lane);
 }
 
 template <typename T>
 int launch(const float* val, const int* col, const int* live_w, const T* b,
-           float* out, int rows, int width, int feat, int slice_feat,
-           const float* scale, const float* x_min, void* stream) {
-  // a slice is all of F or whole 16-byte lanes (the wrapper's slices are
-  // whole 512-byte passes)
-  if (slice_feat < 1 || (slice_feat < feat && slice_feat % 16 != 0))
-    return static_cast<int>(cudaErrorInvalidValue);
+           float* out, int rows, int width, int feat, const float* scale,
+           const float* x_min, void* stream) {
   return dispatch_gather(
-      b, feat, slice_feat, width, [&](auto kvec, auto group, auto lanef) {
+      b, feat, width, [&](auto kvec, auto group, auto lanef) {
         constexpr int G = decltype(group)::value;
         constexpr int rows_per_block = kWarpsPerBlock * 32 / G;
         const dim3 block(32, kWarpsPerBlock);
-        const dim3 grid((rows + rows_per_block - 1) / rows_per_block,
-                        (feat + slice_feat - 1) / slice_feat);
+        const dim3 grid((rows + rows_per_block - 1) / rows_per_block);
         ell_spmm_kernel<T, decltype(kvec)::value, G, decltype(lanef)::value>
             <<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-                val, col, live_w, b, out, rows, width, feat, slice_feat,
-                scale, x_min);
+                val, col, live_w, b, out, rows, width, feat, scale, x_min);
         return static_cast<int>(cudaGetLastError());
       });
 }
@@ -95,27 +85,25 @@ int launch(const float* val, const int* col, const int* live_w, const T* b,
 
 extern "C" int ell_spmm_f32(const float* val, const int* col,
                             const int* live_w, const float* b, float* out,
-                            int rows, int width, int feat, int slice_feat,
-                            void* stream) {
-  return launch(val, col, live_w, b, out, rows, width, feat, slice_feat,
+                            int rows, int width, int feat, void* stream) {
+  return launch(val, col, live_w, b, out, rows, width, feat,
                 static_cast<const float*>(nullptr),
                 static_cast<const float*>(nullptr), stream);
 }
 
 extern "C" int ell_spmm_u8(const float* val, const int* col,
                            const int* live_w, const uint8_t* b, float* out,
-                           int rows, int width, int feat, int slice_feat,
-                           const float* scale, const float* x_min,
-                           void* stream) {
-  return launch(val, col, live_w, b, out, rows, width, feat, slice_feat,
-                scale, x_min, stream);
+                           int rows, int width, int feat, const float* scale,
+                           const float* x_min, void* stream) {
+  return launch(val, col, live_w, b, out, rows, width, feat, scale, x_min,
+                stream);
 }
 
 extern "C" int ell_spmm_u16(const float* val, const int* col,
                             const int* live_w, const uint16_t* b, float* out,
-                            int rows, int width, int feat, int slice_feat,
+                            int rows, int width, int feat,
                             const float* scale, const float* x_min,
                             void* stream) {
-  return launch(val, col, live_w, b, out, rows, width, feat, slice_feat,
-                scale, x_min, stream);
+  return launch(val, col, live_w, b, out, rows, width, feat, scale, x_min,
+                stream);
 }

@@ -42,7 +42,7 @@
 //   4 consecutive features of a 128-feature chunk: one 16-byte (f32),
 //   8-byte (u16) or 4-byte (u8) load a slot, 8 slots' loads issued before
 //   their FMAs, slots summed in slot order per row; ragged F or an
-//   unaligned B take the masked scalar path (common.cuh:load_feature4);
+//   unaligned B take the masked scalar path (common.cuh:lane_load);
 //   Eq. 2 is common.cuh:eq2.  Rows land in the warp's shared-memory tile
 //   [16][lda] (lda = 4 mod 32: conflict-free fragment reads), zero padded.
 // - Transform: mma.sync m16n8k8 TF32 in 3xTF32 (a_lo*b_hi + a_hi*b_lo +
@@ -155,6 +155,7 @@ __device__ __forceinline__ void gather_tile(
   const int kpad = (min(kChunkK, feat - f0) + 7) & ~7;
   const bool writes = 4 * lane < kpad;
   const int f = f0 + 4 * lane;
+  const bool has = f < feat;  // a lane past F sums nothing: its columns 0
 
   // slot t of the tile's list: its row (the last with excl <= t), value
   // and column; past the list, val 0
@@ -175,15 +176,16 @@ __device__ __forceinline__ void gather_tile(
       c = col[i];
     }
   };
-  auto flush = [&](int from, int to, const float4& acc) {
+  auto flush = [&](int from, int to, const float (&acc)[4]) {
     // rows [from, to): the first gets acc, the rest nothing summed
     for (int r = from; r < to; ++r)
       if (writes)
         *reinterpret_cast<float4*>(agg + r * lda + 4 * lane) =
-            r == from ? acc : make_float4(0.f, 0.f, 0.f, 0.f);
+            r == from ? make_float4(acc[0], acc[1], acc[2], acc[3])
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
   };
 
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  float acc[4] = {};
   int cur = 0;
   float v, nv = 0.f;
   int c, r, nc = 0, nr = 0;
@@ -192,13 +194,13 @@ __device__ __forceinline__ void gather_tile(
     if (t0 + 32 < total) fetch(t0 + 32 + lane, nv, nc, nr);
     const int n = min(32, total - t0);
     for (int k0 = 0; k0 < n; k0 += kUnroll) {
-      typename Feature4<kVec, T>::type x[kUnroll];
+      LaneLoad<kVec, T, 4> x[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {  // k0 + u < 32
         const int ck = __shfl_sync(kAll, c, k0 + u);
-        if (k0 + u < n)
-          x[u] = load_feature4<kVec>(b, static_cast<int64_t>(ck) * feat, f,
-                                     feat, scale, x_min);
+        if (has && k0 + u < n)
+          x[u] = lane_load<kVec, 4>(b, static_cast<int64_t>(ck) * feat, f,
+                                    feat, scale, x_min);
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
@@ -208,10 +210,10 @@ __device__ __forceinline__ void gather_tile(
           if (rk != cur) {
             flush(cur, rk, acc);
             cur = rk;
-            acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[j] = 0.f;
           }
-          fma4(vk, feature4_value<kVec, T>(x[u], f, feat, scale, x_min),
-               acc);
+          if (has) lane_fma<false>(vk, x[u], scale, x_min, acc);
         }
       }
     }

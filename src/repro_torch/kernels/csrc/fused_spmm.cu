@@ -83,38 +83,26 @@ __device__ __forceinline__ void store_samples(
   }
 }
 
-// acc += sum_{k < n} sh_val[k] * B[sh_col[k], f..f+3], in slot order.
+// acc += sum_{k < n} sh_val[k] * B[sh_col[k], f..f+3], in slot order
+// (nothing for a lane at or past F).
 template <bool kVec>
 __device__ __forceinline__ void gather_staged(const float* sh_val,
                                               const int* sh_col, int n,
                                               const float* __restrict__ b,
-                                              int feat, int f, float4& acc) {
+                                              int feat, int f,
+                                              float (&acc)[4]) {
+  if (f >= feat) return;
   for (int k0 = 0; k0 < n; k0 += kUnroll) {
-    typename Feature4<kVec, float>::type x[kUnroll];
+    LaneLoad<kVec, float, 4> x[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u)
       if (k0 + u < n)
-        x[u] = load_feature4<kVec>(
+        x[u] = lane_load<kVec, 4>(
             b, static_cast<int64_t>(sh_col[k0 + u]) * feat, f, feat, 1.f,
             0.f);
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u)
-      if (k0 + u < n)
-        fma4(sh_val[k0 + u],
-             feature4_value<kVec, float>(x[u], f, feat, 1.f, 0.f), acc);
-  }
-}
-
-template <bool kVec>
-__device__ __forceinline__ void store4(float* orow, int f, int feat,
-                                       const float4& acc) {
-  if constexpr (kVec) {
-    if (f < feat) *reinterpret_cast<float4*>(orow + f) = acc;
-  } else {
-    const float a[4] = {acc.x, acc.y, acc.z, acc.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (f + j < feat) orow[f + j] = a[j];
+      if (k0 + u < n) lane_fma<false>(sh_val[k0 + u], x[u], 1.f, 0.f, acc);
   }
 }
 
@@ -183,7 +171,7 @@ fused_aes_spmm_kernel(const int* __restrict__ row_ptr,
     float* orow = out + static_cast<int64_t>(row) * feat;
     for (int f0 = 0; f0 < feat; f0 += kFeatPerPass) {
       const int f = f0 + 4 * lane;
-      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      float acc[4] = {};
       for (int ch = 0; ch < chunks; ++ch) {
         // chunk 0 was staged above and stays while it is the only one
         if (ch > 0 || (f0 > 0 && chunks > 1)) {
@@ -198,7 +186,7 @@ fused_aes_spmm_kernel(const int* __restrict__ row_ptr,
                             min(kChunk, cur.live - ch * kChunk), b, feat, f,
                             acc);
       }
-      store4<kVec>(orow, f, feat, acc);
+      if (f < feat) lane_store<kVec>(orow, f, feat, acc);
     }
     cur = nxt;
     row = next;

@@ -3,8 +3,7 @@ on float32 B or on uint8/uint16 B with Eq. 2 applied in the gather.
 
 The kernel (``csrc/ell_spmm.cu``) replaces the Pallas TPU kernel
 ``src/repro/kernels/ell_spmm.py:ell_spmm``.  It is bound by bytes; the
-source says what its design does about that.  :func:`feature_slices`
-picks its L2-sized feature slices.  :func:`ell_spmm_plain` is
+source says what its design does about that.  :func:`ell_spmm_plain` is
 its plain PyTorch version, which the wrapper runs for CPU tensors.
 """
 from __future__ import annotations
@@ -18,45 +17,10 @@ from repro_torch.kernels.ref import ell_spmm_rowloop
 
 _QUANT_DTYPES = {torch.uint8: "ell_spmm_u8", torch.uint16: "ell_spmm_u16"}
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# (val, col, live_w, b, out, rows, width, feat, slice_feat[, &scale,
-#  &x_min], stream)
-_SIGNATURES = {"ell_spmm_f32": [_P] * 5 + [_I] * 4 + [_P],
-               **{fn: [_P] * 5 + [_I] * 4 + [_P] * 3
+# (val, col, live_w, b, out, rows, width, feat[, &scale, &x_min], stream)
+_SIGNATURES = {"ell_spmm_f32": [_P] * 5 + [_I] * 3 + [_P],
+               **{fn: [_P] * 5 + [_I] * 3 + [_P] * 3
                   for fn in _QUANT_DTYPES.values()}}
-
-#: Bytes of B one feature slice of the gather may span: about two thirds
-#: of the H100's 50 MB L2, which also holds the (val, col) and output
-#: streams.  Read when a wrapper is called.
-L2_SLICE_BUDGET = 32 * 2 ** 20
-#: Bytes of a B row in the narrowest slice: one pass of the gather (32
-#: lanes of 16 bytes), so a slice never adds a pass.  A narrower slice
-#: multiplies each row's chain of dependent loads: 32-feature slices of
-#: reddit's f32 features made the ELL SpMM slower, not faster (PERF.md).
-SLICE_BYTES = 512
-
-
-def feature_slices(nodes: int, feat: int, itemsize: int,
-                   budget: int | None = None) -> tuple:
-    """How the gather splits B's ``feat`` features: ``(S, slice_feat)``,
-    ``S`` slices of ``slice_feat`` features (the last may be shorter).
-
-    A B of ``nodes * feat * itemsize`` bytes within ``budget`` (default
-    :data:`L2_SLICE_BUDGET`) is one slice, as is one no wider than a unit
-    (:data:`SLICE_BYTES` of a row).  A larger one is cut into the fewest
-    slices of whole units whose bytes, ``nodes * slice_feat * itemsize``,
-    fit the budget, or into single units where even one does not fit.
-    The kernels run every row of one slice before the next, so each slice
-    of B is read from device memory about once while it sits in L2.
-    """
-    budget = int(L2_SLICE_BUDGET if budget is None else budget)
-    unit = SLICE_BYTES // itemsize               # features of a unit
-    units = -(-feat // unit)
-    if units <= 1 or nodes * feat * itemsize <= budget:
-        return 1, feat
-    fit = max(budget // (nodes * SLICE_BYTES), 1)  # units a slice
-    slices = -(-units // fit)
-    per = -(-units // slices)
-    return -(-units // per), per * unit
 
 
 def _eq2_constants(quantized_meta, device):
@@ -123,8 +87,7 @@ def ell_spmm(val: torch.Tensor, col: torch.Tensor, live_w: torch.Tensor,
         return out.zero_()
     lib = _build.load("ell_spmm", _SIGNATURES)
     args = [_build.ptr(t) for t in (val, col, live_w, b, out)]
-    args += [rows, width, feat,
-             feature_slices(b.shape[0], feat, b.element_size())[1]]
+    args += [rows, width, feat]
     if quantized_meta is None:
         fn = lib.ell_spmm_f32
     else:

@@ -10,8 +10,8 @@ Tolerances: the sampler and the dequantization are bit-exact; float SpMM
 agrees to 1e-5 (the fused kernel contracts a*b+c into FMA, the plain
 version rounds twice; the ELL and blocked SpMMs round twice as it does,
 and the blocked one is held bit-identical in f32); the quantized gathers
-to 1e-4, as in the reference package's tests; the fused layer to 1e-4, the tolerance of
-tests/test_conformance.py:_path_fused_layer (its transform runs on the
+to 1e-4, as in the reference package's tests; the fused layer to 1e-4,
+the tolerance of tests/test_conformance.py:_path_fused_layer (its transform runs on the
 tensor cores in 3xTF32, float32-level error summed in another order than
 cuBLAS).  Cases loop inside
 tests, so the file stays smaller than the JAX package's test files (see
@@ -71,16 +71,6 @@ def _operands(x: torch.Tensor):
     return out
 
 
-def _budgets():
-    """The gathers' L2 slice budget at its default (one slice wherever B
-    fits), then at 1 byte: slices of one 512-byte unit of a B row wherever
-    F is wider (f32 F > 128, uint16 F > 256, uint8 F > 512)."""
-    with pytest.MonkeyPatch.context() as mp:
-        yield ell_mod.L2_SLICE_BUDGET
-        mp.setattr(ell_mod, "L2_SLICE_BUDGET", 1)
-        yield 1
-
-
 def _check_all(g: CSR, x: torch.Tensor, W: int):
     ops.reset_launch_counts()
     ell = ops.aes_sample(g, W)
@@ -91,16 +81,14 @@ def _check_all(g: CSR, x: torch.Tensor, W: int):
         ops.fused_aes_spmm(g, x, W),
         fused_mod.fused_aes_spmm_plain(g.row_ptr, g.col_ind, g.val, x, W),
         rtol=1e-5, atol=1e-5)
-    for budget in _budgets():
-        for b, meta, tol in _operands(x):
-            torch.testing.assert_close(
-                ops.ell_spmm(ell, b, live, quantized_meta=meta),
-                ell_mod.ell_spmm_plain(ell.val, ell.col, live, b, meta),
-                rtol=tol, atol=tol,
-                msg=lambda m: f"F={x.shape[1]} W={W} {b.dtype} "
-                              f"budget={budget}: {m}")
+    for b, meta, tol in _operands(x):
+        torch.testing.assert_close(
+            ops.ell_spmm(ell, b, live, quantized_meta=meta),
+            ell_mod.ell_spmm_plain(ell.val, ell.col, live, b, meta),
+            rtol=tol, atol=tol,
+            msg=lambda m: f"F={x.shape[1]} W={W} {b.dtype}: {m}")
     torch.cuda.synchronize()
-    assert ops.launch_counts() == {"aes_sample": 1, "ell_spmm": 6,
+    assert ops.launch_counts() == {"aes_sample": 1, "ell_spmm": 3,
                                    "fused_aes_spmm": 1, "fused_layer": 0,
                                    "dequantize": 0, "block_ell_spmm": 0}
 
@@ -108,10 +96,9 @@ def _check_all(g: CSR, x: torch.Tensor, W: int):
 def test_kernels_match_plain(cuda):
     """Ragged F (1, 3, 33, 60, 100, 130: the masked scalar path where
     F % 4 != 0), F = 64 and 128 (one vector load a lane, 16- and 32-lane
-    rows) and F > 128 (several feature passes, 2048 among them), each in
-    one feature slice and in 512-byte slices; W from 1 to 128, row
-    counts that fill no whole block of warps, and power-law rows, many of
-    them empty.  Then a B whose base is 4 (f32), 2 (u16) or 1 (u8) bytes
+    rows) and F > 128 (several feature passes, 2048 among them); W from 1
+    to 128, row counts that fill no whole block of warps, and power-law
+    rows, many of them empty.  Then a B whose base is 4 (f32), 2 (u16) or 1 (u8) bytes
     past an aligned one: the vector loads give way to the scalar path."""
     for n, feat, W in ((8, 128, 8), (37, 33, 16), (64, 256, 4),
                        (130, 64, 32), (16, 128, 1), (300, 100, 128),
@@ -126,16 +113,14 @@ def test_kernels_match_plain(cuda):
     live = ell_live_widths(ell.val, ell.col)
     x = torch.randn((300, 128), generator=torch.Generator().manual_seed(9)
                     ).to(cuda)
-    for budget in _budgets():
-        for src, meta, tol in _operands(x):
-            b = torch.empty(src.numel() + 1, dtype=src.dtype,
-                            device=cuda)[1:].view(src.shape).copy_(src)
-            assert b.data_ptr() % (4 * b.element_size()) != 0
-            torch.testing.assert_close(
-                ops.ell_spmm(ell, b, live, quantized_meta=meta),
-                ell_mod.ell_spmm_plain(ell.val, ell.col, live, b, meta),
-                rtol=tol, atol=tol,
-                msg=lambda m: f"unaligned {b.dtype} budget={budget}: {m}")
+    for src, meta, tol in _operands(x):
+        b = torch.empty(src.numel() + 1, dtype=src.dtype,
+                        device=cuda)[1:].view(src.shape).copy_(src)
+        assert b.data_ptr() % (4 * b.element_size()) != 0
+        torch.testing.assert_close(
+            ops.ell_spmm(ell, b, live, quantized_meta=meta),
+            ell_mod.ell_spmm_plain(ell.val, ell.col, live, b, meta),
+            rtol=tol, atol=tol, msg=lambda m: f"unaligned {b.dtype}: {m}")
 
 
 def test_hub_row_far_above_w(cuda):
@@ -270,10 +255,9 @@ def test_block_ell_spmm_matches_plain(cuda):
     """f32/u8/u16 B over mixed strategies at block_rows in {1, 16, 256},
     one to three width buckets and a partial partition (its other rows
     zero), on graphs with a ragged last block and with a "full" block
-    wider than 1024 slots; F in {1, 3, 33, 64, 100, 128, 130, 2048}, each
-    in one feature slice and in 512-byte slices.  f32 is bit-identical
-    to the plain version (the kernel rounds twice, as it does); quantized
-    B to 1e-4."""
+    wider than 1024 slots; F in {1, 3, 33, 64, 100, 128, 130, 2048}.  f32
+    is bit-identical to the plain version (the kernel rounds twice, as it
+    does); quantized B to 1e-4."""
     strategies = (("aes", 8), ("full", 0), ("sfs", 4), ("afs", 32))
     for n, feat, block_rows, hub in ((37, 33, 1, 0), (300, 100, 16, 3000),
                                      (700, 128, 256, 0), (130, 64, 16, 0),
@@ -292,19 +276,17 @@ def test_block_ell_spmm_matches_plain(cuda):
         parts = [partition_width_buckets(bell.widths, k) for k in (1, 2, 3)]
         parts.append(((max(bell.widths), tuple(range(0, nb, 2))),))
         ops.reset_launch_counts()
-        for budget in _budgets():
-            for buckets in parts:
-                for b, meta, tol in operands:
-                    got = ops.block_ell_spmm(bell, b, quantized_meta=meta,
-                                             buckets=buckets)
-                    want = block_mod.block_ell_spmm_plain(
-                        bell.val, bell.col, bell.live_w, b, bell.widths,
-                        block_rows, n, buckets, meta)
-                    torch.testing.assert_close(
-                        got, want, rtol=tol, atol=tol,
-                        msg=lambda m: f"n={n} F={feat} rows={block_rows} "
-                                      f"{b.dtype} budget={budget} "
-                                      f"{buckets}: {m}")
+        for buckets in parts:
+            for b, meta, tol in operands:
+                got = ops.block_ell_spmm(bell, b, quantized_meta=meta,
+                                         buckets=buckets)
+                want = block_mod.block_ell_spmm_plain(
+                    bell.val, bell.col, bell.live_w, b, bell.widths,
+                    block_rows, n, buckets, meta)
+                torch.testing.assert_close(
+                    got, want, rtol=tol, atol=tol,
+                    msg=lambda m: f"n={n} F={feat} rows={block_rows} "
+                                  f"{b.dtype} {buckets}: {m}")
         torch.cuda.synchronize()
         assert ops.launch_counts()["block_ell_spmm"] == \
-            2 * len(operands) * sum(len(p) for p in parts)
+            len(operands) * sum(len(p) for p in parts)

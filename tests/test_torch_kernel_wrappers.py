@@ -5,6 +5,9 @@ launch counters, and the build rules (``sm_90a``, no silent fallback when
 than the JAX package's test files (see tests/test_torch_core.py)."""
 from __future__ import annotations
 
+import ctypes
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -20,7 +23,9 @@ from repro_torch.gnn import evaluate, init_gcn, make_dataset
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import aes_sample as aes_mod
 from repro_torch.kernels import block_ell_spmm as block_mod
+from repro_torch.kernels import dequant as dequant_mod
 from repro_torch.kernels import ell_spmm as ell_mod
+from repro_torch.kernels import fused_layer as layer_mod
 from repro_torch.kernels import fused_spmm as fused_mod
 from repro_torch.tuning import PlanCache
 
@@ -140,34 +145,25 @@ def test_cpu_calls_launch_no_kernel():
                                    "dequantize": 0, "block_ell_spmm": 0}
 
 
-def test_feature_slices_fit_the_l2_budget(monkeypatch):
-    """The gathers' feature slices: one where B fits the L2 budget, or
-    where F is no wider than a unit (512 bytes of a row: reddit's f32
-    features at F = 128 and 64); else more than one, of whole units,
-    covering F, each within the budget unless one unit alone exceeds it
-    (reddit-sized f32 B at F = 512: 4 slices of 128 features); the budget
-    is read at call time."""
-    fs = ell_mod.feature_slices
-    assert fs(232965, 128, 1) == (1, 128)
-    assert fs(232965, 128, 4) == (1, 128)
-    assert fs(232965, 64, 4) == (1, 64)
-    assert fs(232965, 512, 4) == (4, 128)
-    assert fs(0, 2048, 4) == (1, 2048)
-    for nodes, feat, itemsize, budget in (
-            (232965, 1024, 2, None), (1000, 130, 4, 1), (1000, 520, 4, 1e6),
-            (300, 2048, 1, 300 * 600), (10, 3, 4, 1), (10, 128, 4, 1),
-            (4096, 384, 4, 4096 * 256 * 4), (7, 1000, 2, 7 * 600)):
-        slices, width = fs(nodes, feat, itemsize, budget)
-        budget = budget or ell_mod.L2_SLICE_BUDGET
-        unit = ell_mod.SLICE_BYTES // itemsize
-        if nodes * feat * itemsize <= budget or feat <= unit:
-            assert (slices, width) == (1, feat)
-            continue
-        assert slices > 1 and width % unit == 0
-        assert -(-feat // width) == slices
-        assert nodes * width * itemsize <= budget or width == unit
-    monkeypatch.setattr(ell_mod, "L2_SLICE_BUDGET", 1)
-    assert fs(10, 130, 4) == (2, 128)
+def test_signatures_match_the_c_entry_points():
+    """Each wrapper's ctypes argument list against the ``extern "C"``
+    entry points of its ``.cu`` source: the same functions, the same
+    number of arguments, a pointer where the source takes one and the
+    integer width it declares, so a change of one side alone fails here
+    and not as a bad launch on the card."""
+    kinds = {"int": ctypes.c_int, "int64_t": ctypes.c_int64}
+    for name, mod in (("ell_spmm", ell_mod), ("block_ell_spmm", block_mod),
+                      ("aes_sample", aes_mod), ("fused_spmm", fused_mod),
+                      ("fused_layer", layer_mod), ("dequant", dequant_mod)):
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        entries = {fn: [p.strip() for p in params.split(",")]
+                   for fn, params in re.findall(
+                       r'extern "C" int (\w+)\(([^)]*)\)', src)}
+        assert set(entries) == set(mod._SIGNATURES), name
+        for fn, params in entries.items():
+            want = [ctypes.c_void_p if "*" in p else kinds[p.rsplit(" ", 1)[0]]
+                    for p in params]
+            assert mod._SIGNATURES[fn] == want, fn
 
 
 def test_build_names_sm90a_and_tracks_sources():
@@ -177,6 +173,25 @@ def test_build_names_sm90a_and_tracks_sources():
         assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
         assert (_build.CSRC / f"{name}.cu").exists()
     assert len({_build.library_path(n) for n in _build.KERNELS}) == 6
+    # ptxas's report (-Xptxas -v) is read per entry function
+    assert "-v" in _build.NVCC_FLAGS
+    f32 = ("_ZN44_GLOBAL__N__097969d6_11_ell_spmm_cu_f6d7c84315ell_spmm_"
+           "kernelIfLb1ELi32ELi4EEEvPKfPKiS4_PKT_PfiiiS2_S2_")
+    u8 = "_ZN1a17aes_sample_kernelEPKiS1_PKfPfPiii"
+    log = f"""ptxas info    : Compiling entry function '{f32}' for 'sm_90a'
+ptxas info    : Function properties for {f32}
+    8 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 48 registers, 400 bytes cmem[0]
+ptxas info    : Function properties for _Z6helperv
+    0 bytes stack frame, 16 bytes spill stores, 16 bytes spill loads
+ptxas info    : Compiling entry function '{u8}' for 'sm_90a'
+ptxas info    : Function properties for {u8}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 20 registers, 400 bytes cmem[0]
+"""
+    assert _build.parse_ptxas(log) == {
+        "ell_spmm_kernel<f32,1,32,4>": {"registers": 48, "spill_bytes": 12},
+        "aes_sample_kernel": {"registers": 20, "spill_bytes": 0}}
 
 
 def test_build_without_nvcc_raises_instead_of_falling_back(monkeypatch):
