@@ -13,7 +13,9 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
 3. Kernel parity: each kernel against its plain PyTorch version on the
    card, on the four adversarial conformance graphs of the test suite
    (rebuilt here from their seeds) and a ragged random graph with a hub row,
-   at W in {1, 16, 128}: the sampler bit-exact, float SpMM to 1e-5, the
+   at W in {1, 16, 128}: the sampler bit-exact (its live widths too: at
+   W in {1, 3, 16, 127, 128, 256}, also on rows whose sampled prefix ends
+   in an edge to column 0 of value +-0.0), float SpMM to 1e-5, the
    uint8 gather to 1e-4, the fused layer (f32/u8/u16 B, H in {1, 5, 41},
    both activations, plus one F = H = 2048 case) to 1e-4; the
    dequantization bit-exact on the reference's test shapes; the blocked
@@ -39,7 +41,9 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    ``cuda`` ones (``full`` runs no kernel and sums in atomic order, so it
    is only logged; the int8 paths re-quantize their hidden layer, so their
    aggregations and fused layers are held one by one on identical
-   operands); every kernel's launch counter must have moved.
+   operands); every kernel's launch counter must have moved, and the
+   ``cuda`` aes paths (unfused, fused, int8) must decode no live width
+   from the ELL (``ell_live_widths``): the sampler kernel writes them.
    Then the tuned path, its launch counts set to 0 just before it and read
    just after: ``evaluate(strategy="auto")`` for GCN and GraphSAGE at
    ``granularity="block"`` (``tune_blocked``'s defaults: 4096-row blocks,
@@ -53,6 +57,8 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
 5. Kernel times at the main path's shapes (CUDA events around batches of
    back-to-back calls), beside the plain version's time, the bound and,
    for the SpMM, one ``torch.sparse.mm`` on the same sampled matrix; for
+   the sampler also ``ell_live_widths`` on its ELL, the decode its live
+   widths spare each consumer; for
    the fused layer also the port's unfused pipeline (``ell_spmm`` +
    ``torch.matmul`` + bias + ReLU) on the same operands, its bytes and
    operations bounds (its transform counted at the 3xTF32 rate) and the
@@ -99,6 +105,9 @@ PARITY_HIDDEN = (1, 5, 41)  # fused-layer widths H of phase 3
 #: F of phase 3's gather cases: 1 and 3 (scalar loads), 64 and 128 (vector
 #: loads; 16- and 32-lane rows), 130 (ragged), 2048 (16 passes)
 GATHER_FEATS = (1, 3, 64, 128, 130, 2048)
+#: W of phase 3's sampler cases: 1, 3 and 127 (one slot a lane), 16, 128
+#: and 256 (four slots a lane; 256 in two passes)
+SAMPLER_WIDTHS = (1, 3, 16, 127, 128, 256)
 #: per-block (strategy, width) cycle of the blocked parity cases
 BLOCK_CONFIGS = (("aes", 16), ("full", 0), ("sfs", 8), ("afs", 64))
 
@@ -188,6 +197,9 @@ def check_parity(P, device, errs) -> None:
                 raise AssertionError(f"aes_sample differs on {name} W={W}")
             errs["aes_sample"].append(0.0)
             live = P.ell_live_widths(ell.val, ell.col)
+            if not torch.equal(ell.live_w, live):
+                raise AssertionError(f"aes_sample's live widths differ on "
+                                     f"{name} W={W}")
             plain = P.ell_mod.ell_spmm_plain
             for kernel, got, want, tol in (
                     ("ell_spmm", P.ops.ell_spmm(ell, x, live),
@@ -205,6 +217,7 @@ def check_parity(P, device, errs) -> None:
                                     if got.numel() else 0.0)
             check_fused_layer(P, ell, live, x, (qf, P.quantize(x, 16)), errs)
             cases += 1
+    check_sampler(P, graphs, device, errs)
     check_wide_fused_layer(P, graphs["ragged70"], device, errs)
     check_dequantize(P, device, errs)
     check_block_parity(P, graphs, device, errs)
@@ -212,6 +225,53 @@ def check_parity(P, device, errs) -> None:
     for kernel, e in errs.items():
         log({"phase": "parity", "kernel": kernel, "cases": len(e),
              "max_abs_err": max(e)})
+
+
+def zero_tail_csr(P, device):
+    """tests/test_torch_gpu.py:zero_tail_csr: 40 rows (every 4th empty)
+    whose sampled prefixes end in an edge to column 0 of value 0.0 or -0.0
+    (rows 5-7), and two 600-edge hubs whose even / odd edges are such
+    edges (rows 9, 11)."""
+    torch, np = P.torch, P.np
+    rng = np.random.default_rng(41)
+    cols, vals = [], []
+    for r in range(40):
+        d = int(rng.integers(1, 10)) if r % 4 else 0
+        cols.append(rng.integers(1, 40, d))
+        vals.append(rng.normal(size=d))
+    cols[5], vals[5] = np.array([4, 0]), np.array([1.5, 0.0])
+    cols[6], vals[6] = np.array([7, 3, 0]), np.array([2.0, 1.0, -0.0])
+    cols[7], vals[7] = np.zeros(3, np.int64), np.array([0.0, -0.0, 0.0])
+    for r, first in ((9, 0), (11, 1)):
+        cols[r], vals[r] = rng.integers(1, 40, 600), rng.normal(size=600)
+        cols[r][first::2], vals[r][first::2], vals[r][first::4] = 0, 0.0, -0.0
+    row_ptr = np.concatenate([[0], np.cumsum([len(c) for c in cols])])
+    return P.CSR(*(torch.from_numpy(a).to(device) for a in (
+        row_ptr.astype(np.int32), np.concatenate(cols).astype(np.int32),
+        np.concatenate(vals).astype(np.float32))), 40)
+
+
+def check_sampler(P, graphs, device, errs) -> None:
+    """The sampler at W in SAMPLER_WIDTHS (one-slot lanes where W % 4 != 0,
+    16-byte lanes otherwise, one and two 128-slot passes) on the parity
+    graphs and ``zero_tail_csr``: (val, col) bit for bit the plain
+    sampler's (-0.0 kept) and the live widths ``ell_live_widths`` of
+    them."""
+    torch = P.torch
+    cases = dict(graphs, zero_tail=zero_tail_csr(P, device))
+    for name, g in cases.items():
+        for W in SAMPLER_WIDTHS:
+            ell = P.ops.aes_sample(g, W)
+            pv, pc = P.aes_mod.aes_sample_plain(g.row_ptr, g.col_ind, g.val,
+                                                W)
+            if not (torch.equal(ell.val.view(torch.int32),
+                                pv.view(torch.int32))
+                    and torch.equal(ell.col, pc)
+                    and torch.equal(ell.live_w, P.ell_live_widths(pv, pc))):
+                raise AssertionError(f"aes_sample differs on {name} W={W}")
+            errs["aes_sample"].append(0.0)
+    log({"phase": "parity_sampler", "graphs": list(cases),
+         "widths": list(SAMPLER_WIDTHS)})
 
 
 def check_block_parity(P, graphs, device, errs) -> None:
@@ -399,6 +459,22 @@ def main_path(P, ds, device) -> dict:
     """Drive ``evaluate`` over the paper's configurations; hold each kernel
     path's logits against the eager path's.  Returns the kernel launches
     the run made (counts set to 0 at its start)."""
+    decode = P.graph_mod.ell_live_widths
+    decodes = []
+
+    def counted(val, col):
+        decodes.append(1)
+        return decode(val, col)
+
+    # every decode of the live widths from an ELL goes through this name
+    P.graph_mod.ell_live_widths = counted
+    try:
+        return _main_path(P, ds, device, decodes)
+    finally:
+        P.graph_mod.ell_live_widths = decode
+
+
+def _main_path(P, ds, device, decodes) -> dict:
     torch, np = P.torch, P.np
     P.ops.reset_launch_counts()                   # the main path starts here
     for model in ("gcn", "graphsage"):
@@ -422,12 +498,17 @@ def main_path(P, ds, device) -> dict:
         for strategy, backend, bits, fuse in configs:
             kw = dict(sh_width=W_MAIN, strategy=strategy, backend=backend,
                       quantize_bits=bits, fuse_layers=fuse, device=device)
-            before = P.ops.launch_counts()
+            before, decoded = P.ops.launch_counts(), len(decodes)
             t0 = time.perf_counter()
             acc = P.evaluate(ds, model, params, **kw)
             wall = time.perf_counter() - t0       # evaluate ends in a host read
             after = P.ops.launch_counts()
             per_call = {k: after[k] - before[k] for k in after}
+            decoded = len(decodes) - decoded
+            if (strategy, backend) == ("aes", "cuda") and decoded:
+                raise AssertionError(f"{model} aes cuda bits={bits} "
+                                     f"fuse={fuse}: {decoded} live-width "
+                                     "decodes; the sampler writes them")
             # the fused layers call no module, so no hook sees their logits:
             # the same call through infer_logits gives them
             out = P.infer_logits(ds, model, params, **kw) if fuse \
@@ -446,7 +527,8 @@ def main_path(P, ds, device) -> dict:
             log({"phase": "main_path", "model": model, "strategy": strategy,
                  "backend": backend, "quant_bits": bits,
                  "fuse_layers": fuse, "accuracy": acc,
-                 "evaluate_wall_s": wall, "launches_per_evaluate": per_call})
+                 "evaluate_wall_s": wall, "launches_per_evaluate": per_call,
+                 "live_width_decodes": decoded})
         hook.remove()
         # "full" runs the same eager code on both backends (no kernel): its
         # index_add_ sums in atomic order, so it is logged, not compared.
@@ -753,7 +835,7 @@ def kernel_times(P, ds, device, launches, errs, timer, plain_timer):
     torch, ops = P.torch, P.ops
     adj, x = ds.gcn_adj, ds.features
     ell = ops.aes_sample(adj, W_MAIN)
-    live = P.ell_live_widths(ell.val, ell.col)
+    live = ell.live_w
     hidden = gcn_hidden(P, ds, ell, live)
     rows, feat = adj.num_rows, x.shape[1]
     n_live = int(live.sum())
@@ -770,7 +852,8 @@ def kernel_times(P, ds, device, launches, errs, timer, plain_timer):
 
     sv, sc = P.aes_mod.aes_sample_plain(adj.row_ptr, adj.col_ind, adj.val,
                                         W_MAIN)
-    if not (torch.equal(ell.val, sv) and torch.equal(ell.col, sc)):
+    if not (torch.equal(ell.val, sv) and torch.equal(ell.col, sc)
+            and torch.equal(live, P.ell_live_widths(sv, sc))):
         raise AssertionError("aes_sample differs from its plain version on "
                              "the main path's graph")
     check(ops.ell_spmm(ell, x, live), spmm_plain(ell.val, ell.col, live, x),
@@ -857,11 +940,16 @@ def kernel_times(P, ds, device, launches, errs, timer, plain_timer):
           f64=f64,
           shape={"rows": rows, "W": W_MAIN, "F": feat, "live_slots": n_live,
                  "distinct_b_rows": uniq})
+    # the plain version: the sampler and the decode of its live widths;
+    # beside it the decode alone, which the kernel's live widths spare
+    # each consumer of the ELL (not a library call for the same function)
     entry("aes_sample", lambda: ops.aes_sample(adj, W_MAIN),
-          lambda: P.aes_mod.aes_sample_plain(adj.row_ptr, adj.col_ind,
-                                             adj.val, W_MAIN),
-          csr_read + rows * W_MAIN * 8, 0.0, None, "aes_sample",
+          lambda: P.ell_live_widths(*P.aes_mod.aes_sample_plain(
+              adj.row_ptr, adj.col_ind, adj.val, W_MAIN)),
+          csr_read + rows * W_MAIN * 8 + rows * 4, 0.0, None, "aes_sample",
           cu="aes_sample.cu", replaces="src/repro/kernels/aes_sample.py:83",
+          live_width_decode_ms=timer(
+              lambda: P.ell_live_widths(ell.val, ell.col)),
           shape={"rows": rows, "W": W_MAIN, "nnz": adj.nnz,
                  "live_slots": n_live})
     entry("fused_aes_spmm", lambda: ops.fused_aes_spmm(adj, x, W_MAIN),
@@ -1112,6 +1200,7 @@ def port():
     import torch
 
     from repro_torch import obs
+    from repro_torch.core import graph as graph_mod
     from repro_torch.core.aes_spmm import sample
     from repro_torch.core.graph import (CSR, ELL, csr_from_edges,
                                         ell_live_widths,

@@ -20,7 +20,7 @@ from __future__ import annotations
 from typing import Optional
 
 from repro_torch import obs
-from repro_torch.core.graph import CSR, ELL, ell_live_widths, pad_csr_to_ell
+from repro_torch.core.graph import CSR, ELL, pad_csr_to_ell
 from repro_torch.core.quantization import QuantizedFeatures, dequantize
 from repro_torch.core.sampling import STRATEGIES
 
@@ -37,7 +37,7 @@ def not_ported(what: str, slice_: str = "serving"):
 def sample(csr: CSR, sh_width: int, strategy: str = "aes",
            backend: str = "torch") -> ELL:
     """Sampling pre-pass producing the ELL operand (the AES pass runs the
-    sampler kernel on ``backend="cuda"``)."""
+    sampler kernel on ``backend="cuda"``, and its ELL carries ``live_w``)."""
     if strategy == "full":
         ell = pad_csr_to_ell(csr)
     elif backend == "cuda" and strategy == "aes":
@@ -51,7 +51,7 @@ def sample(csr: CSR, sh_width: int, strategy: str = "aes",
     if obs.enabled():
         # edges the sampler kept vs. discarded on this call (dropped is
         # clamped at 0 because AES may duplicate hub edges)
-        kept = int(ell_live_widths(ell.val, ell.col).sum())
+        kept = int(ell.live_widths().sum())
         obs.count("sampler.calls")
         obs.count(f"sampler.calls.{strategy}")
         obs.count("sampler.edges_kept", kept)

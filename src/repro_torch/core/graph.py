@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import hashlib
 import weakref
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -78,12 +78,15 @@ class ELL(NamedTuple):
       * live slots form a contiguous prefix of each row;
       * the padding sentinel is ``val == 0`` *and* ``col == 0`` — a dead
         slot gathers row 0 of B but multiplies it by 0;
-      * ``width`` is the width W the sampler was run with.
+      * ``width`` is the width W the sampler was run with;
+      * ``live_w``, where a producer knows it (the AES sampler kernel, a
+        tuned plan), is ``ell_live_widths(val, col)``; ``None`` otherwise.
     """
 
     val: torch.Tensor  # f32[rows, W]
     col: torch.Tensor  # int32[rows, W]
     num_cols: int
+    live_w: Optional[torch.Tensor] = None  # int32[rows]
 
     @property
     def num_rows(self) -> int:
@@ -93,8 +96,21 @@ class ELL(NamedTuple):
     def width(self) -> int:
         return self.val.shape[1]
 
+    def live_widths(self) -> torch.Tensor:
+        """``live_w``, or decoded from the padding sentinel
+        (:func:`ell_live_widths`) where the ELL does not carry it."""
+        if self.live_w is not None:
+            return self.live_w
+        return ell_live_widths(self.val, self.col)
+
+    def with_live_widths(self) -> "ELL":
+        """This ELL carrying its live widths (decoded once if absent)."""
+        return self if self.live_w is not None \
+            else self._replace(live_w=self.live_widths())
+
     def to(self, device) -> "ELL":
-        return ELL(self.val.to(device), self.col.to(device), self.num_cols)
+        return ELL(self.val.to(device), self.col.to(device), self.num_cols,
+                   None if self.live_w is None else self.live_w.to(device))
 
 
 class BlockELL(NamedTuple):

@@ -1,50 +1,148 @@
 // AES sampling pre-pass for Hopper: CSR -> ELL[rows, W] by Table 1 + Eq. 3,
-// element j of sample i in slot i + j*cnt, dead slots (val 0, col 0).
+// element j of sample i in slot i + j*cnt, dead slots (val 0, col 0), and
+// each row's live width: 1 + its last slot holding anything but the
+// sentinel (ell_live_widths of the output, bit for bit), 0 for none.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/aes_sample.py:aes_sample
 // (_sample_kernel).
 //
 // Bound: bytes.  The least traffic is the row pointers, one (col, val) read
-// per live slot and the [rows, W] (val, col) write: rows*4 +
-// sum(live)*8 + rows*W*8.  Design: one thread per (row, slot) through the
-// inverse of the slot layout (common.cuh), so neighbouring threads write
-// neighbouring slots of one row and the writes coalesce.  Reads are masked
-// to the row; nothing past the CSR tail is touched (the TPU kernel's padded
-// fixed-size run copy is not needed).  Integer arithmetic only: the output
-// is bit-identical to the plain sampler.
+// per live slot, the [rows, W] (val, col) write and the live widths:
+// (rows+1)*4 + sum(live)*8 + rows*W*8 + rows*4.  At W = 128 on a power-law
+// graph nearly all of it is the write of dead slots (95% on reddit), so the
+// kernel is a zero-fill that must not pay for arithmetic.
+// Design: one warp a row, rows from a grid-stride loop over a persistent
+// grid, the next row's row_ptr pair loaded while this row is written.  The
+// Table 1 strategy is computed once a row; every slot below n*cnt is live
+// (Eq. 3 keeps the sample inside the row), every slot at or past it dead.
+// Lane i < cnt computes sample i's start (i*1429) % span once, and a slot
+// takes its start from lane s % cnt by a shuffle: cnt is 1, 4, 8, 16 or 32
+// (a mask and a shift), or, where it is not a power of two, the row keeps
+// cnt = w < 32 slots, one a sample, so s is the sample.  No other division.
+// A lane writes 4 consecutive slots of val and of col in one 16-byte store
+// each where W % 4 == 0 (a warp writes 128 slots, a W = 128 row, in one
+// store of each), one slot each otherwise; slots past the live prefix are
+// zero stores with no load.  The output is bit-identical to the plain
+// sampler.
 #include <cstdint>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr unsigned kFullMask = 0xffffffffu;
 
+template <int K> struct SlotStore;
+template <> struct SlotStore<1> {
+  static __device__ __forceinline__ void put(float* v, int* c,
+                                             const float (&x)[1],
+                                             const int (&y)[1]) {
+    *v = x[0];
+    *c = y[0];
+  }
+};
+template <> struct SlotStore<4> {
+  static __device__ __forceinline__ void put(float* v, int* c,
+                                             const float (&x)[4],
+                                             const int (&y)[4]) {
+    *reinterpret_cast<float4*>(v) = make_float4(x[0], x[1], x[2], x[3]);
+    *reinterpret_cast<int4*>(c) = make_int4(y[0], y[1], y[2], y[3]);
+  }
+};
+
+// K consecutive slots a lane: 4 (16-byte stores; W % 4 == 0) or 1.
+template <int K>
 __global__ void __launch_bounds__(kThreads)
 aes_sample_kernel(const int* __restrict__ row_ptr,
                   const int* __restrict__ col_ind,
                   const float* __restrict__ val, float* __restrict__ out_val,
-                  int* __restrict__ out_col, int rows, int sh_width) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (idx >= static_cast<int64_t>(rows) * sh_width) return;
-  const int row = static_cast<int>(idx / sh_width);
-  const int s = static_cast<int>(idx - static_cast<int64_t>(row) * sh_width);
-  const int start = row_ptr[row];
-  const AesRow st = aes_row_strategy(row_ptr[row + 1] - start, sh_width);
-  const int off = aes_slot_offset(st, s);
-  out_val[idx] = off >= 0 ? val[start + off] : 0.f;
-  out_col[idx] = off >= 0 ? col_ind[start + off] : 0;
+                  int* __restrict__ out_col, int* __restrict__ out_live,
+                  int rows, int sh_width) {
+  const int lane = threadIdx.x & 31;
+  const int stride = gridDim.x * kWarps;
+  int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  int lo = 0, hi = 0;
+  if (row < rows) {
+    lo = row_ptr[row];
+    hi = row_ptr[row + 1];
+  }
+  for (; row < rows; row += stride) {
+    const int start = lo;
+    const AesRow st = aes_row_strategy(hi - lo, sh_width);
+    if (row + stride < rows) {
+      lo = row_ptr[row + stride];
+      hi = row_ptr[row + stride + 1];
+    }
+    const int prefix = st.nnz > 0 ? st.n * st.cnt : 0;
+    const int span = max(st.nnz - st.n + 1, 1);
+    const int first = lane < st.cnt ? (lane * AES_PRIME_NUM) % span : 0;
+    const bool pow2 = (st.cnt & (st.cnt - 1)) == 0;
+    const int shift = __ffs(st.cnt) - 1;
+    float* ov = out_val + static_cast<int64_t>(row) * sh_width;
+    int* oc = out_col + static_cast<int64_t>(row) * sh_width;
+    int last = 0;  // 1 + this lane's last slot that is not the sentinel
+    for (int s0 = 0; s0 < sh_width; s0 += 32 * K) {
+      const int s = s0 + lane * K;
+      float v[K];
+      int c[K];
+      if (s0 < prefix) {  // the same for the whole warp: shuffles are safe
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const int t = s + k;
+          const int i = pow2 ? (t & (st.cnt - 1)) : t;
+          const int off = __shfl_sync(kFullMask, first, i & 31) +
+                          (pow2 ? t >> shift : 0);
+          const bool live = t < prefix;
+          v[k] = live ? val[start + off] : 0.f;
+          c[k] = live ? col_ind[start + off] : 0;
+          if (v[k] != 0.f || c[k] != 0) last = t + 1;
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          v[k] = 0.f;
+          c[k] = 0;
+        }
+      }
+      if (s < sh_width) SlotStore<K>::put(ov + s, oc + s, v, c);
+    }
+    last = __reduce_max_sync(kFullMask, last);
+    if (lane == 0) out_live[row] = last;
+  }
+}
+
+template <int K>
+int launch(const int* row_ptr, const int* col_ind, const float* val,
+           float* out_val, int* out_col, int* out_live, int rows,
+           int sh_width, cudaStream_t stream) {
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, aes_sample_kernel<K>, kThreads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int needed = (rows + kWarps - 1) / kWarps;
+  const int grid = max(1, min(needed, sms * max(per_sm, 1)));
+  aes_sample_kernel<K><<<grid, kThreads, 0, stream>>>(
+      row_ptr, col_ind, val, out_val, out_col, out_live, rows, sh_width);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" int aes_sample(const int* row_ptr, const int* col_ind,
                           const float* val, float* out_val, int* out_col,
-                          int rows, int sh_width, void* stream) {
-  const int64_t total = static_cast<int64_t>(rows) * sh_width;
-  const int64_t blocks = (total + kThreads - 1) / kThreads;
-  aes_sample_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      row_ptr, col_ind, val, out_val, out_col, rows, sh_width);
-  return static_cast<int>(cudaGetLastError());
+                          int* out_live, int rows, int sh_width,
+                          void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  return sh_width % 4 == 0
+             ? launch<4>(row_ptr, col_ind, val, out_val, out_col, out_live,
+                         rows, sh_width, s)
+             : launch<1>(row_ptr, col_ind, val, out_val, out_col, out_live,
+                         rows, sh_width, s);
 }

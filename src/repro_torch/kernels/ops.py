@@ -7,7 +7,7 @@ kernel's plain version, CUDA tensors the kernel.
 """
 from __future__ import annotations
 
-from repro_torch.core.graph import (CSR, ELL, BlockELL, ell_live_widths,
+from repro_torch.core.graph import (CSR, ELL, BlockELL,
                                     partition_width_buckets)
 from repro_torch.kernels import aes_sample as _sample_mod
 from repro_torch.kernels import block_ell_spmm as _block_mod
@@ -50,14 +50,14 @@ def ell_spmm(ell: ELL, b, live_w=None, *, quantized_meta=None):
       ell: sampled operand (dead slots zeroed, live slots a prefix).
       b: dense operand ``[num_nodes, feat]`` — f32, or uint8/uint16 when
         ``quantized_meta`` is given.
-      live_w: optional int32[rows] live-prefix lengths; decoded from the
-        zero sentinel when omitted.
+      live_w: optional int32[rows] live-prefix lengths; else
+        ``ell.live_w``, else decoded from the zero sentinel.
       quantized_meta: ``(scale, x_min)`` enables the fused-dequant gather.
 
     Returns f32[rows, feat].
     """
     if live_w is None:
-        live_w = ell_live_widths(ell.val, ell.col)
+        live_w = ell.live_widths()
     return _ell_mod.ell_spmm(ell.val.contiguous(), ell.col.contiguous(),
                              live_w.contiguous(), b.contiguous(),
                              quantized_meta=quantized_meta)
@@ -90,10 +90,10 @@ def block_ell_spmm(bell: BlockELL, b, *, quantized_meta=None, buckets=None):
 
 def aes_sample(csr: CSR, sh_width: int) -> ELL:
     """AES sampling pre-pass: CSR -> ELL(width=sh_width), dead slots
-    zeroed."""
-    val, col = _sample_mod.aes_sample(csr.row_ptr, csr.col_ind, csr.val,
-                                      sh_width)
-    return ELL(val, col, csr.num_cols)
+    zeroed, carrying its live widths (written by the kernel on the card)."""
+    val, col, live_w = _sample_mod.aes_sample(csr.row_ptr, csr.col_ind,
+                                              csr.val, sh_width)
+    return ELL(val, col, csr.num_cols, live_w)
 
 
 def fused_aes_spmm(csr: CSR, b, sh_width: int):
@@ -114,8 +114,8 @@ def fused_layer_spmm(ell: ELL, b, w, bias, live_w=None, *, relu: bool = True,
         ``quantized_meta`` is given.
       w: layer weights f32[feat, hidden].
       bias: layer bias f32[hidden].
-      live_w: optional int32[rows] live-prefix lengths; decoded from the
-        zero sentinel when omitted.
+      live_w: optional int32[rows] live-prefix lengths; else
+        ``ell.live_w``, else decoded from the zero sentinel.
       relu: apply ReLU after the bias add (False for a logits layer).
       quantized_meta: ``(scale, x_min)`` enables the fused-dequant gather.
 
@@ -131,7 +131,7 @@ def fused_layer_spmm(ell: ELL, b, w, bias, live_w=None, *, relu: bool = True,
             f"fused layer dims F={feat}, H={hidden} exceed the shared-memory "
             f"budget ({_FUSED_LAYER_MAX_DIM}); use the unfused path")
     if live_w is None:
-        live_w = ell_live_widths(ell.val, ell.col)
+        live_w = ell.live_widths()
     return _layer_mod.fused_layer(
         ell.val.contiguous(), ell.col.contiguous(), live_w.contiguous(),
         b.contiguous(), w.contiguous(), bias.reshape(-1).contiguous(),

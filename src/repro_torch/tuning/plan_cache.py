@@ -150,6 +150,11 @@ class TunedPlan:
 
     kind = "global"
 
+    def __post_init__(self):
+        # the operand's live widths, once per plan (tuned or loaded from
+        # disk, whose file keeps val/col only), so no request decodes them
+        self.ell = self.ell.with_live_widths()
+
     def run(self, features):
         """Steady-state aggregation: SpMM over the cached operand.
 

@@ -61,6 +61,37 @@ def _graph(seed: int, n: int, avg_deg: float, skew: float, device,
     return csr_from_edges(src, dst, n, val, device=device)
 
 
+def zero_tail_csr(device) -> CSR:
+    """40 rows the live widths must get right, built as CSR arrays (rows
+    need not be sorted): every 4th row empty; rows whose sampled prefix
+    ends in an edge to column 0 of value 0.0 or -0.0 (the sentinel's
+    value, so the decode ends the live prefix before it): row 5 (1.5 then
+    0.0: live 1 at W >= 2), row 6 (2.0, 1.0, then -0.0: live 2 at W >= 3),
+    row 7 (only such edges: live 0); and two 600-edge hubs, rows 9 and
+    11, whose even and odd edges are such edges: row 9's one sampled slot
+    at W = 1 is one (live 0), as are its samples 0 and 2 at W = 3 (3
+    samples, not a power of two; live 2), as is row 11's last sampled slot
+    at W = 16, 127, 128 and 256."""
+    rng = np.random.default_rng(41)
+    cols, vals = [], []
+    for r in range(40):
+        d = int(rng.integers(1, 10)) if r % 4 else 0
+        cols.append(rng.integers(1, 40, d))
+        vals.append(rng.normal(size=d))
+    cols[5], vals[5] = np.array([4, 0]), np.array([1.5, 0.0])
+    cols[6], vals[6] = np.array([7, 3, 0]), np.array([2.0, 1.0, -0.0])
+    cols[7], vals[7] = np.zeros(3, np.int64), np.array([0.0, -0.0, 0.0])
+    for r, first in ((9, 0), (11, 1)):
+        cols[r], vals[r] = rng.integers(1, 40, 600), rng.normal(size=600)
+        cols[r][first::2], vals[r][first::2], vals[r][first::4] = 0, 0.0, -0.0
+    row_ptr = np.concatenate([[0], np.cumsum([len(c) for c in cols])])
+    return CSR(torch.from_numpy(row_ptr.astype(np.int32)).to(device),
+               torch.from_numpy(np.concatenate(cols).astype(np.int32)
+                                ).to(device),
+               torch.from_numpy(np.concatenate(vals).astype(np.float32)
+                                ).to(device), 40)
+
+
 def _operands(x: torch.Tensor):
     """(B, quantized_meta, tolerance): f32 x, and x quantized to uint8 and
     uint16."""
@@ -77,6 +108,7 @@ def _check_all(g: CSR, x: torch.Tensor, W: int):
     val, col = aes_mod.aes_sample_plain(g.row_ptr, g.col_ind, g.val, W)
     assert torch.equal(ell.val, val) and torch.equal(ell.col, col)
     live = ell_live_widths(ell.val, ell.col)
+    assert torch.equal(ell.live_w, live)
     torch.testing.assert_close(
         ops.fused_aes_spmm(g, x, W),
         fused_mod.fused_aes_spmm_plain(g.row_ptr, g.col_ind, g.val, x, W),
@@ -121,6 +153,30 @@ def test_kernels_match_plain(cuda):
             ops.ell_spmm(ell, b, live, quantized_meta=meta),
             ell_mod.ell_spmm_plain(ell.val, ell.col, live, b, meta),
             rtol=tol, atol=tol, msg=lambda m: f"unaligned {b.dtype}: {m}")
+
+
+def test_aes_sample_writes_live_widths(cuda):
+    """The sampler's (val, col) bit for bit its plain version's and its
+    live widths ``ell_live_widths`` of them, at W in {1, 3, 16, 127, 128,
+    256}: the one-slot lanes (W % 4 != 0) and the 16-byte ones, over one
+    and two 128-slot passes; the zero-tail rows of ``zero_tail_csr``, a
+    hub row far above W, and power-law rows, many of them empty."""
+    graphs = (zero_tail_csr(cuda), _graph(12, 500, 4.0, 0.8, cuda, hub=20000),
+              _graph(13, 300, 9.0, 0.7, cuda))
+    ops.reset_launch_counts()
+    for gi, g in enumerate(graphs):
+        for W in (1, 3, 16, 127, 128, 256):
+            ell = ops.aes_sample(g, W)
+            val, col = aes_mod.aes_sample_plain(g.row_ptr, g.col_ind, g.val,
+                                                W)
+            assert torch.equal(ell.val.view(torch.int32),
+                               val.view(torch.int32)), (gi, W)
+            assert torch.equal(ell.col, col), (gi, W)
+            assert torch.equal(ell.live_w, ell_live_widths(val, col)), (gi, W)
+            if gi == 0 and W >= 3:
+                assert ell.live_w[5:8].tolist() == [1, 2, 0], W
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["aes_sample"] == 18
 
 
 def test_hub_row_far_above_w(cuda):

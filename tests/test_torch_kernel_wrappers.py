@@ -17,8 +17,10 @@ from repro.core.graph import ELL as JELL
 from repro.core.graph import ell_live_widths as jlive_widths
 from repro.core.sampling import sample_csr_to_ell as jsample
 from repro.kernels import ref as jref
-from repro_torch.core.graph import CSR, ELL
+import repro_torch.core.graph as graph_mod
+from repro_torch.core.graph import CSR, ELL, ell_live_widths
 from repro_torch.core.sampling import sample_csr_to_block_ell
+from repro_torch.exec import PlanExecutor
 from repro_torch.gnn import evaluate, init_gcn, make_dataset
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import aes_sample as aes_mod
@@ -74,6 +76,70 @@ def test_explicit_live_w_bounds_the_sum():
                        torch.from_numpy(live.astype(np.int32)))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
+
+
+def test_live_w_from_argument_then_ell_then_decode():
+    """``ops.ell_spmm`` and ``ops.fused_layer_spmm`` take an explicit
+    ``live_w`` first, then the ELL's, then decode it: the three give the
+    same output where they agree, and an explicit ``live_w`` shorter than
+    the ELL's bounds the sum."""
+    g = to_port(random_csr(np.random.default_rng(12), 40, 9.0, skew=0.7))
+    b = torch.from_numpy(np.random.default_rng(13).normal(size=(40, 12))
+                         .astype(np.float32))
+    w, bias = b[:12, :5].contiguous(), b[0, :5].contiguous()
+    ell = ops.aes_sample(g, 16)
+    bare = ELL(ell.val, ell.col, ell.num_cols)
+    short = torch.clamp(ell.live_w, max=2)
+    for fn in (lambda e, lw=None: ops.ell_spmm(e, b, lw),
+               lambda e, lw=None: ops.fused_layer_spmm(e, b, w, bias, lw)):
+        want = fn(bare)                                  # decoded
+        assert torch.equal(fn(ell), want)                # from the ELL
+        assert torch.equal(fn(bare, ell.live_w), want)   # from the argument
+        cut = fn(bare, short)
+        assert torch.equal(fn(ell, short), cut)          # argument first
+        assert not torch.equal(cut, want)
+
+
+def test_ell_carries_live_w_and_three_fields_still_work(monkeypatch):
+    """``ELL.to`` keeps ``live_w``; a 3-field ``ELL`` has none, decodes on
+    demand and runs every consumer; and on CPU tensors the kernel paths of
+    ``evaluate`` (``cuda`` aes, float and int8, and the fused ``cuda``
+    layers) decode no live width, where an AFS ``cuda`` one must."""
+    g = to_port(random_csr(np.random.default_rng(14), 30, 6.0, skew=0.8))
+    ell = ops.aes_sample(g, 8)
+    assert torch.equal(ell.live_w, ell_live_widths(ell.val, ell.col))
+    moved = ell.to("meta")
+    assert moved.live_w.device.type == "meta" and \
+        moved.live_w.shape == ell.live_w.shape
+    assert torch.equal(ell.to("cpu").live_w, ell.live_w)
+    bare = ELL(ell.val, ell.col, ell.num_cols)
+    assert bare.live_w is None and bare.to("cpu").live_w is None
+    assert torch.equal(bare.live_widths(), ell.live_w)
+    assert torch.equal(bare.with_live_widths().live_w, ell.live_w)
+    b = torch.ones((30, 4))
+    executor = PlanExecutor()
+    for e in (ell, bare):
+        torch.testing.assert_close(
+            executor.run_ell(e, b, backend="cuda"),
+            executor.run_ell(e, b, backend="torch"), rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(
+            executor.run_fused_layer(e, b, torch.ones((4, 3)), torch.zeros(3),
+                                     backend="cuda"),
+            executor.run_fused_layer(e, b, torch.ones((4, 3)), torch.zeros(3),
+                                     backend="torch"), rtol=1e-5, atol=1e-5)
+    decodes = []
+    decode = graph_mod.ell_live_widths
+    monkeypatch.setattr(graph_mod, "ell_live_widths",
+                        lambda v, c: decodes.append(1) or decode(v, c))
+    ds = make_dataset("cora", scale=0.01, device="cpu")
+    model = init_gcn(np.random.default_rng(0), 96, 8, 7, device="cpu")
+    for bits, fuse in ((None, False), (8, False), (None, True), (8, True)):
+        evaluate(ds, "gcn", model, sh_width=8, backend="cuda",
+                 quantize_bits=bits, fuse_layers=fuse, device="cpu")
+    assert decodes == []
+    evaluate(ds, "gcn", model, sh_width=8, strategy="afs", backend="cuda",
+             device="cpu")
+    assert decodes   # the AFS sampler writes no live widths: each layer decodes
 
 
 def test_wrappers_reject_bad_inputs():

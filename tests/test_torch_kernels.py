@@ -18,7 +18,9 @@ import numpy as np
 import torch
 import jax.numpy as jnp
 
+from repro.core.graph import CSR as JCSR
 from repro.core.graph import ELL as JELL
+from repro.core.graph import ell_live_widths as jlive_widths
 from repro.core.quantization import dequantize as jdequantize
 from repro.core.quantization import quantize as jquantize
 from repro.core.sampling import sample_csr_to_ell as jsample
@@ -28,6 +30,7 @@ from repro_torch.core.quantization import quantize
 from repro_torch.kernels import ops, ref
 
 from conftest import random_csr
+from test_torch_gpu import zero_tail_csr
 
 # one intra-op thread: the suite runs in parallel workers beside timing tests
 torch.set_num_threads(1)
@@ -93,6 +96,32 @@ def test_ops_aes_sample_bit_identical():
         got = ops.aes_sample(to_port(g), W)
         np.testing.assert_array_equal(got.col.numpy(), np.asarray(want_col))
         np.testing.assert_array_equal(got.val.numpy(), np.asarray(want_val))
+
+
+def test_ops_aes_sample_live_w_matches_jax():
+    """``ops.aes_sample(...).live_w``, bit for bit the JAX package's
+    ``ell_live_widths`` of its own sampler's ELL, and the ELL bit for bit
+    its (-0.0 kept), at W in {1, 3, 16, 127, 128}: rows whose sampled
+    prefix ends in an edge to column 0 of value 0.0 or -0.0, empty rows
+    and a 600-edge hub (``zero_tail_csr``), and a power-law graph."""
+    zt = zero_tail_csr("cpu")
+    graphs = (JCSR(*(jnp.asarray(t.numpy()) for t in zt[:3]), zt.num_cols),
+              random_csr(np.random.default_rng(8), 90, 3.0, skew=0.6))
+    for gi, g in enumerate(graphs):
+        for W in (1, 3, 16, 127, 128):
+            want_val, want_col = jsample(g.row_ptr, g.col_ind, g.val, W)
+            got = ops.aes_sample(to_port(g), W)
+            assert got.live_w.dtype == torch.int32
+            np.testing.assert_array_equal(
+                got.live_w.numpy(),
+                np.asarray(jlive_widths(want_val, want_col)))
+            np.testing.assert_array_equal(
+                got.val.numpy().view(np.int32),
+                np.asarray(want_val).view(np.int32))
+            np.testing.assert_array_equal(got.col.numpy(),
+                                          np.asarray(want_col))
+            if gi == 0 and W >= 3:
+                assert got.live_w[5:8].tolist() == [1, 2, 0], W
 
 
 def test_fused_aes_spmm_matches_jax_oracle():

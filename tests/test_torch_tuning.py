@@ -39,9 +39,10 @@ from repro.tuning import tune_blocked as jtune_blocked
 from repro.tuning.plan_cache import features_fingerprint as jfeatures_fp
 import repro_torch.core.graph as tg
 from repro_torch.tuning import calibration as tcal
-from repro_torch.gnn import evaluate, infer_logits, make_dataset, \
+from repro_torch.gnn import evaluate, infer_logits, init_gcn, make_dataset, \
     params_from_numpy
-from repro_torch.tuning import (MachineModel, PlanCache, default_grid,
+from repro_torch.tuning import (CandidateConfig, MachineModel, PlanCache,
+                                default_grid,
                                 extract_block_features, extract_features,
                                 features_fingerprint, fingerprint, rank, tune,
                                 tune_blocked)
@@ -271,6 +272,39 @@ def test_evaluate_auto_matches_reference(trained, model):
         # logits agree to 1e-4: the argmax may differ only on a test node
         # whose top two classes lie within that of each other
         assert abs(acc - want_acc) * mask.sum() <= 1 + 1e-6, case
+
+
+def test_graph_plans_carry_live_w(tmp_path, monkeypatch):
+    """A graph plan, tuned or read back from disk, carries its ELL's live
+    widths, the reference's decode of that ELL: the AES plan from the
+    sampler, an SFS one decoded once when made or loaded.  A warm
+    ``evaluate(strategy="auto")`` on such a plan then decodes none, plain
+    and with the fused layers, on the kernel backend (whose wrappers run
+    their plain versions on CPU tensors)."""
+    tds = make_dataset(**DATA, device=CPU)
+    adj, x = tds.gcn_adj, tds.features
+    params = init_gcn(np.random.default_rng(0), x.shape[1], 8,
+                      tds.spec.num_classes, device=CPU)
+    for strategy in ("aes", "sfs"):
+        cfg = CandidateConfig(strategy, 32, "cuda")
+        kw = dict(grid=[cfg], machine=MachineModel(), warmup=0, iters=1)
+        plan = tune(adj, x, cache=PlanCache(tmp_path / strategy), **kw)
+        want = jg.ell_live_widths(jnp.asarray(plan.ell.val.numpy()),
+                                  jnp.asarray(plan.ell.col.numpy()))
+        _same(plan.ell.live_w, want)
+        cache = PlanCache(tmp_path / strategy)
+        loaded = cache.get(plan.fingerprint, device=CPU)
+        assert loaded is not plan and loaded.config == cfg
+        _same(loaded.ell.live_w, want)
+        decodes = []
+        decode = tg.ell_live_widths
+        monkeypatch.setattr(tg, "ell_live_widths",
+                            lambda v, c: decodes.append(1) or decode(v, c))
+        for fuse in (False, True):
+            evaluate(tds, "gcn", params, strategy="auto", fuse_layers=fuse,
+                     plan_cache=cache, tune_kwargs=kw, device=CPU)
+        assert decodes == [], strategy
+        monkeypatch.undo()
 
 
 _NORMALIZERS = {
