@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
-"""Time the AES sampler kernel against a variant of it on one CUDA card.
+"""Time the AES sampler kernel against variants of it on one CUDA card.
 
 Run from the root of a checkout on the machine with the card::
 
-    python3 scripts/sample_variants.py
+    python3 scripts/sample_variants.py [OTHER/aes_sample.cu ...]
 
-Builds ``src/repro_torch/kernels/csrc/aes_sample.cu`` as it is and as a
-variant whose output stores are streaming stores (``__stcs``: the ELL is
-read back only by a later kernel), each with the repository's nvcc flags,
-into a temporary directory; checks both against the plain sampler and the
-decode of its live widths, bit for bit, on reddit's GCN adjacency at full
-size (``make_dataset("reddit", scale=1.0, max_avg_degree=None)``); and
-times both in turns (as is, variant, variant, as is) at W in {16, 128,
-256}, with ``chip_smoke.py``'s CUDA-event timer.  Prints one JSON line per
-W and the card's name and power limit.
+Builds ``src/repro_torch/kernels/csrc/aes_sample.cu`` as it is and as
+variants of it: streaming output stores (``__stcs``: the ELL is read back
+only by a later kernel) and 1 or 4 rows a warp at once (``kRows``), plus
+any whole source named on the command line (under the name of its
+directory), each with the repository's nvcc flags into a temporary
+directory; prints each build's registers and spills (ptxas); checks each
+against the plain sampler and the decode of its live widths, bit for bit,
+on reddit's GCN adjacency at full size (``make_dataset("reddit",
+scale=1.0, max_avg_degree=None)``); and times them in turns (each in
+order, then in reverse) at W in {16, 128, 256} with ``chip_smoke.py``'s
+CUDA-event timer.  Prints one JSON line per W after the card's name and
+power limit.
 """
 from __future__ import annotations
 
@@ -27,6 +30,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
+ROWS = "constexpr int kRows = 2;"
+#: a warp's kRows rows next to each other (rows r, r + 1, ...) instead of
+#: a grid apart
+ADJACENT = (
+    ("int row = blockIdx.x * kWarps + (threadIdx.x >> 5);",
+     "int row = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * kRows;"),
+    ("const int r = row + (kRows + u) * warps;",
+     "const int r = row + kRows * warps + u;"),
+    ("row + u * warps", "row + u"),
+)
 #: (as written, streaming) pairs of aes_sample.cu's output stores
 STREAMING = (
     ("*v = x[0];", "__stcs(v, x[0]);"),
@@ -39,16 +52,18 @@ STREAMING = (
 )
 
 
-def build(src: str, out: Path, nvcc_flags, nvcc) -> ctypes.CDLL:
+def build(src: str, out: Path, build_mod) -> tuple:
+    """(the loaded library, ptxas's registers and spills) of ``src``."""
     cu = out.with_suffix(".cu")
     cu.write_text(src)
-    subprocess.run([nvcc, *nvcc_flags, "-I", str(out.parent), "-o", str(out),
-                    str(cu)], check=True, capture_output=True, text=True)
+    done = subprocess.run([build_mod.nvcc(), *build_mod.NVCC_FLAGS, "-I",
+                           str(out.parent), "-o", str(out), str(cu)],
+                          check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(out))
     lib.aes_sample.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [
         ctypes.c_void_p]
     lib.aes_sample.restype = ctypes.c_int
-    return lib
+    return lib, build_mod.parse_ptxas(done.stdout + done.stderr)
 
 
 def main() -> None:
@@ -65,11 +80,23 @@ def main() -> None:
         sys.exit("sample_variants: no CUDA card")
     print(chip_smoke.device_line(), flush=True)
     src = (_build.CSRC / "aes_sample.cu").read_text()
-    variant = src
-    for old, new in STREAMING:
-        if old not in variant:
-            sys.exit(f"sample_variants: store not found: {old}")
-        variant = variant.replace(old, new)
+    edits = {"as_is": (), "streaming": STREAMING,
+             **{f"rows_{n}": ((ROWS, ROWS.replace("2", str(n))),)
+                for n in (1, 4)},
+             "adjacent_rows": ADJACENT,
+             "min_5_blocks": (("__launch_bounds__(kThreads)",
+                               "__launch_bounds__(kThreads, 5)"),)}
+    codes = {}
+    for name, pairs in edits.items():
+        code = src
+        for old, new in pairs:
+            if old not in code:
+                sys.exit(f"sample_variants: not in the source: {old}")
+            code = code.replace(old, new)
+        codes[name] = code
+    # other whole sources, e.g. an earlier design: time them too
+    for path in map(Path, sys.argv[1:]):
+        codes[path.parent.name] = path.read_text()
     adj = make_dataset("reddit", scale=1.0, seed=0, max_avg_degree=None,
                        device="cuda").gcn_adj
     rows = adj.num_rows
@@ -78,9 +105,10 @@ def main() -> None:
         tmp = Path(tmp)
         (tmp / "common.cuh").write_text(
             (_build.CSRC / "common.cuh").read_text())
-        libs = {name: build(code, tmp / f"{name}.so", _build.NVCC_FLAGS,
-                            _build.nvcc())
-                for name, code in (("as_is", src), ("streaming", variant))}
+        libs = {}
+        for name, code in codes.items():
+            libs[name], res = build(code, tmp / f"{name}.so", _build)
+            print(json.dumps({"variant": name, "ptxas": res}), flush=True)
         for W in (16, 128, 256):
             out = (torch.empty((rows, W), device="cuda"),
                    torch.empty((rows, W), dtype=torch.int32, device="cuda"),
@@ -96,7 +124,7 @@ def main() -> None:
             pv, pc = sample_csr_to_ell(adj.row_ptr, adj.col_ind, adj.val, W)
             want = (pv.view(torch.int32), pc, ell_live_widths(pv, pc))
             times = {name: [] for name in libs}
-            for name in ("as_is", "streaming", "streaming", "as_is"):
+            for name in [*libs, *reversed(libs)]:
                 for t in out:
                     t.fill_(-1)
                 call(libs[name])
@@ -106,6 +134,9 @@ def main() -> None:
                                          "plain sampler")
                 times[name].append(chip_smoke.time_ms(
                     torch, lambda lib=libs[name]: call(lib)))
+            # the write alone: both outputs zero-filled by PyTorch
+            times["zero_fill"] = [chip_smoke.time_ms(
+                torch, lambda: (out[0].zero_(), out[1].zero_()))]
             print(json.dumps({"W": W, "rows": rows, "ms": times}), flush=True)
 
 

@@ -32,7 +32,61 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 2;  // rows a warp samples at once, their loads in flight
 constexpr unsigned kFullMask = 0xffffffffu;
+
+// One row as the warp samples it: slot t < prefix holds element t >> shift
+// of sample t & mask, which starts at the row offset lane (t & mask) holds
+// in `first`; every slot at or past prefix is dead.  A count of samples
+// that is not a power of two keeps one slot a sample (mask ~0, shift 31).
+struct RowPlan {
+  int start;   // the row's first CSR element
+  int prefix;  // n * cnt sampled slots (0 for an empty row)
+  int first;   // this lane's sample start, (lane * 1429) % span
+  int mask;
+  int shift;
+};
+
+__device__ __forceinline__ RowPlan plan_row(int lo, int hi, int sh_width,
+                                            int lane) {
+  const AesRow st = aes_row_strategy(hi - lo, sh_width);
+  const bool pow2 = (st.cnt & (st.cnt - 1)) == 0;
+  RowPlan p;
+  p.start = lo;
+  p.prefix = st.nnz > 0 ? st.n * st.cnt : 0;
+  p.first = 0;
+  if (st.cnt > 1 && lane < st.cnt)  // a row kept whole takes no division
+    p.first = (lane * AES_PRIME_NUM) % max(st.nnz - st.n + 1, 1);
+  p.mask = pow2 ? st.cnt - 1 : ~0;
+  p.shift = pow2 ? __ffs(st.cnt) - 1 : 31;
+  return p;
+}
+
+// This lane's K slots from s (of the warp's chunk from s0): the sampled
+// (val, col) below the prefix, zeros past it, with no load there.
+template <int K>
+__device__ __forceinline__ void sample_slots(
+    const RowPlan& p, int s0, int s, const int* __restrict__ col_ind,
+    const float* __restrict__ val, float (&v)[K], int (&c)[K]) {
+  if (s0 < p.prefix) {  // the same for the whole warp: shuffles are safe
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int t = s + k;
+      int off = t;  // a row kept whole (mask 0): slot t is element t
+      if (p.mask != 0)  // the same for the whole warp
+        off = __shfl_sync(kFullMask, p.first, t & p.mask) + (t >> p.shift);
+      const bool live = t < p.prefix;
+      v[k] = live ? val[p.start + off] : 0.f;
+      c[k] = live ? col_ind[p.start + off] : 0;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      v[k] = 0.f;
+      c[k] = 0;
+    }
+  }
+}
 
 template <int K> struct SlotStore;
 template <> struct SlotStore<1> {
@@ -52,7 +106,8 @@ template <> struct SlotStore<4> {
   }
 };
 
-// K consecutive slots a lane: 4 (16-byte stores; W % 4 == 0) or 1.
+// K consecutive slots a lane: 4 (16-byte stores; W % 4 == 0) or 1.  Warp w
+// of the grid's G samples rows w + G i, kRows of them at once.
 template <int K>
 __global__ void __launch_bounds__(kThreads)
 aes_sample_kernel(const int* __restrict__ row_ptr,
@@ -61,55 +116,51 @@ aes_sample_kernel(const int* __restrict__ row_ptr,
                   int* __restrict__ out_col, int* __restrict__ out_live,
                   int rows, int sh_width) {
   const int lane = threadIdx.x & 31;
-  const int stride = gridDim.x * kWarps;
+  const int warps = gridDim.x * kWarps;
   int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  int lo = 0, hi = 0;
-  if (row < rows) {
-    lo = row_ptr[row];
-    hi = row_ptr[row + 1];
+  int lo[kRows], hi[kRows];
+#pragma unroll
+  for (int u = 0; u < kRows; ++u) {
+    const int r = row + u * warps;
+    lo[u] = r < rows ? row_ptr[r] : 0;
+    hi[u] = r < rows ? row_ptr[r + 1] : 0;
   }
-  for (; row < rows; row += stride) {
-    const int start = lo;
-    const AesRow st = aes_row_strategy(hi - lo, sh_width);
-    if (row + stride < rows) {
-      lo = row_ptr[row + stride];
-      hi = row_ptr[row + stride + 1];
+  for (; row < rows; row += kRows * warps) {
+    RowPlan p[kRows];
+#pragma unroll
+    for (int u = 0; u < kRows; ++u) {
+      p[u] = plan_row(lo[u], hi[u], sh_width, lane);
+      const int r = row + (kRows + u) * warps;  // the next rows' pointers
+      lo[u] = r < rows ? row_ptr[r] : 0;
+      hi[u] = r < rows ? row_ptr[r + 1] : 0;
     }
-    const int prefix = st.nnz > 0 ? st.n * st.cnt : 0;
-    const int span = max(st.nnz - st.n + 1, 1);
-    const int first = lane < st.cnt ? (lane * AES_PRIME_NUM) % span : 0;
-    const bool pow2 = (st.cnt & (st.cnt - 1)) == 0;
-    const int shift = __ffs(st.cnt) - 1;
-    float* ov = out_val + static_cast<int64_t>(row) * sh_width;
-    int* oc = out_col + static_cast<int64_t>(row) * sh_width;
-    int last = 0;  // 1 + this lane's last slot that is not the sentinel
+    int last[kRows];  // 1 + this lane's last slot that is not the sentinel
+#pragma unroll
+    for (int u = 0; u < kRows; ++u) last[u] = 0;
     for (int s0 = 0; s0 < sh_width; s0 += 32 * K) {
       const int s = s0 + lane * K;
-      float v[K];
-      int c[K];
-      if (s0 < prefix) {  // the same for the whole warp: shuffles are safe
+      float v[kRows][K];
+      int c[kRows][K];
 #pragma unroll
-        for (int k = 0; k < K; ++k) {
-          const int t = s + k;
-          const int i = pow2 ? (t & (st.cnt - 1)) : t;
-          const int off = __shfl_sync(kFullMask, first, i & 31) +
-                          (pow2 ? t >> shift : 0);
-          const bool live = t < prefix;
-          v[k] = live ? val[start + off] : 0.f;
-          c[k] = live ? col_ind[start + off] : 0;
-          if (v[k] != 0.f || c[k] != 0) last = t + 1;
-        }
-      } else {
+      for (int u = 0; u < kRows; ++u)
+        sample_slots<K>(p[u], s0, s, col_ind, val, v[u], c[u]);
 #pragma unroll
-        for (int k = 0; k < K; ++k) {
-          v[k] = 0.f;
-          c[k] = 0;
-        }
+      for (int u = 0; u < kRows; ++u) {
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          if (v[u][k] != 0.f || c[u][k] != 0) last[u] = s + k + 1;
+        const int64_t r = row + u * warps;
+        if (r < rows && s < sh_width)
+          SlotStore<K>::put(out_val + r * sh_width + s,
+                            out_col + r * sh_width + s, v[u], c[u]);
       }
-      if (s < sh_width) SlotStore<K>::put(ov + s, oc + s, v, c);
     }
-    last = __reduce_max_sync(kFullMask, last);
-    if (lane == 0) out_live[row] = last;
+#pragma unroll
+    for (int u = 0; u < kRows; ++u) {
+      const int r = row + u * warps;
+      const int live = __reduce_max_sync(kFullMask, last[u]);
+      if (lane == 0 && r < rows) out_live[r] = live;
+    }
   }
 }
 
