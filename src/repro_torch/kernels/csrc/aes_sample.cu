@@ -54,9 +54,9 @@ __device__ __forceinline__ RowPlan plan_row(int lo, int hi, int sh_width,
   RowPlan p;
   p.start = lo;
   p.prefix = st.nnz > 0 ? st.n * st.cnt : 0;
-  p.first = 0;
-  if (st.cnt > 1 && lane < st.cnt)  // a row kept whole takes no division
-    p.first = (lane * AES_PRIME_NUM) % max(st.nnz - st.n + 1, 1);
+  p.first = lane < st.cnt
+                ? (lane * AES_PRIME_NUM) % max(st.nnz - st.n + 1, 1)
+                : 0;
   p.mask = pow2 ? st.cnt - 1 : ~0;
   p.shift = pow2 ? __ffs(st.cnt) - 1 : 31;
   return p;
@@ -72,9 +72,8 @@ __device__ __forceinline__ void sample_slots(
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const int t = s + k;
-      int off = t;  // a row kept whole (mask 0): slot t is element t
-      if (p.mask != 0)  // the same for the whole warp
-        off = __shfl_sync(kFullMask, p.first, t & p.mask) + (t >> p.shift);
+      const int off =
+          __shfl_sync(kFullMask, p.first, t & p.mask) + (t >> p.shift);
       const bool live = t < p.prefix;
       v[k] = live ? val[p.start + off] : 0.f;
       c[k] = live ? col_ind[p.start + off] : 0;
