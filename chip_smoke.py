@@ -58,7 +58,8 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    back-to-back calls), beside the plain version's time, the bound and,
    for the SpMM, one ``torch.sparse.mm`` on the same sampled matrix; for
    the sampler also ``ell_live_widths`` on its ELL, the decode its live
-   widths spare each consumer; for
+   widths spare each consumer, and a zero fill of its two outputs, the
+   write alone; for
    the fused layer also the port's unfused pipeline (``ell_spmm`` +
    ``torch.matmul`` + bias + ReLU) on the same operands, its bytes and
    operations bounds (its transform counted at the 3xTF32 rate) and the
@@ -942,7 +943,9 @@ def kernel_times(P, ds, device, launches, errs, timer, plain_timer):
                  "distinct_b_rows": uniq})
     # the plain version: the sampler and the decode of its live widths;
     # beside it the decode alone, which the kernel's live widths spare
-    # each consumer of the ELL (not a library call for the same function)
+    # each consumer of the ELL (not a library call for the same function),
+    # and the write alone: outputs of the sampler's shapes zero-filled
+    zero_val, zero_col = torch.empty_like(ell.val), torch.empty_like(ell.col)
     entry("aes_sample", lambda: ops.aes_sample(adj, W_MAIN),
           lambda: P.ell_live_widths(*P.aes_mod.aes_sample_plain(
               adj.row_ptr, adj.col_ind, adj.val, W_MAIN)),
@@ -950,6 +953,7 @@ def kernel_times(P, ds, device, launches, errs, timer, plain_timer):
           cu="aes_sample.cu", replaces="src/repro/kernels/aes_sample.py:83",
           live_width_decode_ms=timer(
               lambda: P.ell_live_widths(ell.val, ell.col)),
+          zero_fill_ms=timer(lambda: (zero_val.zero_(), zero_col.zero_())),
           shape={"rows": rows, "W": W_MAIN, "nnz": adj.nnz,
                  "live_slots": n_live})
     entry("fused_aes_spmm", lambda: ops.fused_aes_spmm(adj, x, W_MAIN),

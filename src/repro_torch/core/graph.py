@@ -103,11 +103,6 @@ class ELL(NamedTuple):
             return self.live_w
         return ell_live_widths(self.val, self.col)
 
-    def with_live_widths(self) -> "ELL":
-        """This ELL carrying its live widths (decoded once if absent)."""
-        return self if self.live_w is not None \
-            else self._replace(live_w=self.live_widths())
-
     def to(self, device) -> "ELL":
         return ELL(self.val.to(device), self.col.to(device), self.num_cols,
                    None if self.live_w is None else self.live_w.to(device))

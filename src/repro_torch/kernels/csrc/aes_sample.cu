@@ -11,10 +11,12 @@
 // (rows+1)*4 + sum(live)*8 + rows*W*8 + rows*4.  At W = 128 on a power-law
 // graph nearly all of it is the write of dead slots (95% on reddit), so the
 // kernel is a zero-fill that must not pay for arithmetic.
-// Design: one warp a row, rows from a grid-stride loop over a persistent
-// grid, the next row's row_ptr pair loaded while this row is written.  The
+// Design: a warp samples kRows = 2 rows at once, a grid apart, rows from a
+// grid-stride loop over a persistent grid; both rows' loads are issued
+// before either row's stores, and the next rows' row_ptr pairs load while
+// these are written (1 row at once measured slower, 4 slower still).  The
 // Table 1 strategy is computed once a row; every slot below n*cnt is live
-// (Eq. 3 keeps the sample inside the row), every slot at or past it dead.
+// (Eq. 3 keeps each sample inside the row), every slot at or past it dead.
 // Lane i < cnt computes sample i's start (i*1429) % span once, and a slot
 // takes its start from lane s % cnt by a shuffle: cnt is 1, 4, 8, 16 or 32
 // (a mask and a shift), or, where it is not a power of two, the row keeps
@@ -22,8 +24,9 @@
 // A lane writes 4 consecutive slots of val and of col in one 16-byte store
 // each where W % 4 == 0 (a warp writes 128 slots, a W = 128 row, in one
 // store of each), one slot each otherwise; slots past the live prefix are
-// zero stores with no load.  The output is bit-identical to the plain
-// sampler.
+// zero stores with no load (streaming stores measured no faster at W =
+// 128).  The live width is the warp's largest 1 + slot holding anything
+// but the sentinel.  The output is bit-identical to the plain sampler.
 #include <cstdint>
 
 #include "common.cuh"
@@ -87,23 +90,19 @@ __device__ __forceinline__ void sample_slots(
   }
 }
 
-template <int K> struct SlotStore;
-template <> struct SlotStore<1> {
-  static __device__ __forceinline__ void put(float* v, int* c,
-                                             const float (&x)[1],
-                                             const int (&y)[1]) {
-    *v = x[0];
-    *c = y[0];
-  }
-};
-template <> struct SlotStore<4> {
-  static __device__ __forceinline__ void put(float* v, int* c,
-                                             const float (&x)[4],
-                                             const int (&y)[4]) {
-    *reinterpret_cast<float4*>(v) = make_float4(x[0], x[1], x[2], x[3]);
-    *reinterpret_cast<int4*>(c) = make_int4(y[0], y[1], y[2], y[3]);
-  }
-};
+// A lane's slots from v / c: one of each, or four in one 16-byte store.
+__device__ __forceinline__ void store_slots(float* v, int* c,
+                                            const float (&x)[1],
+                                            const int (&y)[1]) {
+  *v = x[0];
+  *c = y[0];
+}
+__device__ __forceinline__ void store_slots(float* v, int* c,
+                                            const float (&x)[4],
+                                            const int (&y)[4]) {
+  *reinterpret_cast<float4*>(v) = make_float4(x[0], x[1], x[2], x[3]);
+  *reinterpret_cast<int4*>(c) = make_int4(y[0], y[1], y[2], y[3]);
+}
 
 // K consecutive slots a lane: 4 (16-byte stores; W % 4 == 0) or 1.  Warp w
 // of the grid's G samples rows w + G i, kRows of them at once.
@@ -150,8 +149,8 @@ aes_sample_kernel(const int* __restrict__ row_ptr,
           if (v[u][k] != 0.f || c[u][k] != 0) last[u] = s + k + 1;
         const int64_t r = row + u * warps;
         if (r < rows && s < sh_width)
-          SlotStore<K>::put(out_val + r * sh_width + s,
-                            out_col + r * sh_width + s, v[u], c[u]);
+          store_slots(out_val + r * sh_width + s, out_col + r * sh_width + s,
+                      v[u], c[u]);
       }
     }
 #pragma unroll

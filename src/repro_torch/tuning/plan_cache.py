@@ -153,7 +153,7 @@ class TunedPlan:
     def __post_init__(self):
         # the operand's live widths, once per plan (tuned or loaded from
         # disk, whose file keeps val/col only), so no request decodes them
-        self.ell = self.ell.with_live_widths()
+        self.ell = self.ell._replace(live_w=self.ell.live_widths())
 
     def run(self, features):
         """Steady-state aggregation: SpMM over the cached operand.

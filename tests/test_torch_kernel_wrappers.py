@@ -115,7 +115,6 @@ def test_ell_carries_live_w_and_three_fields_still_work(monkeypatch):
     bare = ELL(ell.val, ell.col, ell.num_cols)
     assert bare.live_w is None and bare.to("cpu").live_w is None
     assert torch.equal(bare.live_widths(), ell.live_w)
-    assert torch.equal(bare.with_live_widths().live_w, ell.live_w)
     b = torch.ones((30, 4))
     executor = PlanExecutor()
     for e in (ell, bare):
