@@ -79,8 +79,8 @@ class ELL(NamedTuple):
       * the padding sentinel is ``val == 0`` *and* ``col == 0`` — a dead
         slot gathers row 0 of B but multiplies it by 0;
       * ``width`` is the width W the sampler was run with;
-      * ``live_w``, where a producer knows it (the AES sampler kernel, a
-        tuned plan), is ``ell_live_widths(val, col)``; ``None`` otherwise.
+      * ``live_w``, where a producer gives it (``ops.aes_sample``, a tuned
+        plan), is ``ell_live_widths(val, col)``; ``None`` otherwise.
     """
 
     val: torch.Tensor  # f32[rows, W]

@@ -7,8 +7,7 @@ kernel's plain version, CUDA tensors the kernel.
 """
 from __future__ import annotations
 
-from repro_torch.core.graph import (CSR, ELL, BlockELL,
-                                    partition_width_buckets)
+from repro_torch.core.graph import CSR, ELL, BlockELL, partition_width_buckets
 from repro_torch.kernels import aes_sample as _sample_mod
 from repro_torch.kernels import block_ell_spmm as _block_mod
 from repro_torch.kernels import dequant as _dequant_mod
