@@ -27,23 +27,35 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    on f32, uint8 and uint16 B, at W = 1, W = 2048 (a hub row of
    2048 live slots) and on rows with no live slot, the blocked kernel on a
    3000-slot "full" block and bit-identical to its plain version in f32.
-4. Main path: ``make_dataset("reddit", scale=1.0, max_avg_degree=None)``
-   (232,965 nodes, the published average degree) through ``evaluate`` for
-   GCN and GraphSAGE at the paper's configuration (hidden 64, W=128), with
-   random parameters from a numpy seed: strategies aes/afs/sfs/full on the
-   ``torch`` and ``cuda`` backends, aes on ``cuda_fused``, aes with int8
-   features on ``cuda``, and for GCN the fused layers
-   (``fuse_layers=True``, aes) on ``torch``, on ``cuda`` and on ``cuda``
-   with int8 features; then ``ops.dequantize`` of the uint8 features.  The
-   kernel backends' logits (kept by a forward hook on the model, or from
-   ``infer_logits`` for the fused layers, which call no module) must match
-   the eager backend's to 1e-4, and the fused ``cuda`` logits the unfused
-   ``cuda`` ones (``full`` runs no kernel and sums in atomic order, so it
-   is only logged; the int8 paths re-quantize their hidden layer, so their
+4. Training: ``make_dataset("reddit", scale=1.0, max_avg_degree=None)``
+   (232,965 nodes, the published average degree); GCN and GraphSAGE
+   trained on it by ``train_model`` with its defaults (hidden 64, 150
+   epochs of the reference's AdamW, the exact aggregation), which must
+   launch no kernel, lower the train loss and reach an ideal (exact) test
+   accuracy above 0.8; seconds an epoch and peak device memory logged.
+   Main path: the trained models through ``evaluate`` at the paper's
+   configuration (``repro_torch.configs``: hidden 64, W=128): strategies
+   full/aes/afs/sfs on the ``torch`` and ``cuda`` backends, aes on
+   ``cuda_fused``, aes with int8 features on ``cuda``, and for GCN the
+   fused layers (``fuse_layers=True``, aes) on ``torch``, on ``cuda`` and
+   on ``cuda`` with int8 features; then ``ops.dequantize`` of the uint8
+   features.  Each line logs ``accuracy_lost_vs_full``, the accuracy of
+   ``full`` on ``torch`` for the model minus the path's (the paper's
+   metric).  The kernel backends' logits (kept by a forward hook on the
+   model, or from ``infer_logits`` for the fused layers, which call no
+   module) must match the eager backend's to 1e-4 and their accuracies to
+   0.001, and the fused ``cuda`` logits the unfused ``cuda`` ones
+   (``full`` runs no kernel and sums in atomic order, so it is only
+   logged; the int8 paths re-quantize their hidden layer, so their
    aggregations and fused layers are held one by one on identical
    operands); every kernel's launch counter must have moved, and the
    ``cuda`` aes paths (unfused, fused, int8) must decode no live width
    from the ELL (``ell_live_widths``): the sampler kernel writes them.
+   Then the presampled path, its launch counts set to 0 just before it and
+   read just after: the trained GCN through
+   ``make_presampled_agg(adj, W, "aes", "cuda")`` (one ``aes_sample`` and
+   two ``ell_spmm`` launches) against ``"torch"``, logits to 1e-4 and
+   accuracies to 0.001.
    Then the tuned path, its launch counts set to 0 just before it and read
    just after: ``evaluate(strategy="auto")`` for GCN and GraphSAGE at
    ``granularity="block"`` (``tune_blocked``'s defaults: 4096-row blocks,
@@ -52,8 +64,11 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    ``strategy="auto"``; each cold (tuning) and warm (plan-cache hit), every
    blocked ``evaluate`` launching the blocked kernel; each plan's ``cuda``
    logits held against the port's ``torch`` backend on the same plan
-   (1e-4); then the host costs the tuned path adds (the CSR digest pass and
-   the features hash of a quantized plan, on the input and a hidden layer).
+   (1e-4, accuracies to 0.001), each line with ``accuracy_lost_vs_full``;
+   then the host costs the tuned path adds (the CSR digest pass and the
+   features hash of a quantized plan, on the input and a hidden layer).
+   The kernel checks of the int8 layers and of phase 5 keep random
+   parameters from a numpy seed: they hold kernels, not accuracy.
 5. Kernel times at the main path's shapes (CUDA events around batches of
    back-to-back calls), beside the plain version's time, the bound and,
    for the SpMM, one ``torch.sparse.mm`` on the same sampled matrix; for
@@ -77,6 +92,7 @@ and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import functools
+import inspect
 import json
 import statistics
 import subprocess
@@ -97,8 +113,9 @@ FP32_FLOP_PER_S = 67e12
 #: runs at a third of it.
 TF32_FLOP_PER_S = 495e12
 
-W_MAIN = 128        # configs/gnn_paper.py: sh_width
-HIDDEN = 64         # configs/gnn_paper.py: hidden
+#: W and the hidden width of the paper's reddit configurations, read from
+#: ``repro_torch.configs`` by :func:`main` (the port is imported there)
+W_MAIN = HIDDEN = None
 TIMING_BATCH = 20   # calls between one pair of CUDA events
 TIMING_REPS = 7     # batches; the median is kept
 PLAIN_REPS = 3      # single calls of a plain version; the median is kept
@@ -445,13 +462,75 @@ def check_dequantize(P, device, errs):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the main path
+# phase 4: training, the main path, the presampled and the tuned paths
 # ---------------------------------------------------------------------------
 
-def main_path(P, ds, device) -> dict:
-    """Drive ``evaluate`` over the paper's configurations; hold each kernel
-    path's logits against the eager path's.  Returns the kernel launches
-    the run made (counts set to 0 at its start)."""
+def paper_widths(P) -> tuple:
+    """(W, hidden) of the paper's GCN and GraphSAGE reddit configurations,
+    which must agree."""
+    widths = {(c.sh_width, c.hidden) for c in (
+        P.PAPER_GNN_CONFIGS[f"{m}-reddit"] for m in ("gcn", "graphsage"))}
+    if len(widths) != 1:
+        raise AssertionError(f"reddit configurations differ: {widths}")
+    return widths.pop()
+
+
+def train_phase(P, ds, device) -> dict:
+    """Train GCN and GraphSAGE with ``train_model``'s defaults; log seconds
+    an epoch (the whole call, synchronized, over its epochs), the loss of
+    the seed's initial parameters (``first_loss``, the loss epoch 1
+    computes) and of the trained ones (``last_loss``), peak device memory
+    and the ideal accuracy.  Fails if training launched a kernel, if the
+    loss did not fall or if the ideal accuracy is not above 0.8
+    (tests/test_gnn.py's bar).  Returns the trained modules."""
+    torch, np = P.torch, P.np
+    defaults = {k: v.default for k, v in
+                inspect.signature(P.train_model).parameters.items()
+                if k in ("hidden", "epochs", "lr", "seed", "weight_decay")}
+    modules = {}
+    for model in ("gcn", "graphsage"):
+        init_fn, _, adj_name = P.MODELS[model]
+        adj = getattr(ds, adj_name)
+
+        def loss_of(module):
+            with torch.inference_mode():
+                return float(P.cross_entropy(module(adj, ds.features,
+                                                    P.exact_agg),
+                                             ds.labels, ds.train_mask))
+
+        first = loss_of(init_fn(np.random.default_rng(defaults["seed"]),
+                                ds.features.shape[1], defaults["hidden"],
+                                ds.spec.num_classes, device=device))
+        P.ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        module, ideal = P.train_model(ds, model, device=device)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launched = {k: n for k, n in P.ops.launch_counts().items() if n}
+        last = loss_of(module)
+        log({"phase": "train", "model": model, **defaults,
+             "seconds": seconds, "s_per_epoch": seconds / defaults["epochs"],
+             "first_loss": first, "last_loss": last,
+             "ideal_accuracy": ideal, "peak_memory_bytes": peak,
+             "memory_before_bytes": base, "kernel_launches": launched})
+        if launched:
+            raise AssertionError(f"{model} training launched {launched}")
+        if not (last < first and ideal > 0.8):
+            raise AssertionError(f"{model} training: loss {first} -> {last}, "
+                                 f"ideal accuracy {ideal}")
+        modules[model] = module
+    return modules
+
+
+def main_path(P, ds, device, modules) -> tuple:
+    """Drive ``evaluate`` over the paper's configurations with the trained
+    ``modules``; hold each kernel path's logits and accuracy against the
+    eager path's.  Returns the kernel launches the run made (counts set to
+    0 at its start) and each model's ``full``/``torch`` accuracy."""
     decode = P.graph_mod.ell_live_widths
     decodes = []
 
@@ -462,32 +541,32 @@ def main_path(P, ds, device) -> dict:
     # every decode of the live widths from an ELL goes through this name
     P.graph_mod.ell_live_widths = counted
     try:
-        return _main_path(P, ds, device, decodes)
+        return _main_path(P, ds, device, decodes, modules)
     finally:
         P.graph_mod.ell_live_widths = decode
 
 
-def _main_path(P, ds, device, decodes) -> dict:
-    torch, np = P.torch, P.np
+def _main_path(P, ds, device, decodes, modules) -> tuple:
+    torch = P.torch
+    full_acc = {}
     P.ops.reset_launch_counts()                   # the main path starts here
     for model in ("gcn", "graphsage"):
-        init_fn, _, adj_name = P.MODELS[model]
-        adj = getattr(ds, adj_name)
-        params = init_fn(np.random.default_rng(0), ds.features.shape[1],
-                         HIDDEN, ds.spec.num_classes, device=device)
+        adj = getattr(ds, P.MODELS[model][2])
+        params = modules[model]
         # evaluate returns the accuracy only: keep the logits it scored
         captured = []
         hook = params.register_forward_hook(
             lambda _m, _args, out: captured.append(out))
-        # (strategy, backend, quantize_bits, fuse_layers)
-        configs = [(s, b, None, False) for s in ("aes", "afs", "sfs", "full")
+        # (strategy, backend, quantize_bits, fuse_layers); full on torch
+        # first: every line's accuracy_lost_vs_full is taken against it
+        configs = [(s, b, None, False) for s in ("full", "aes", "afs", "sfs")
                    for b in ("torch", "cuda")]
         configs += [("aes", "cuda_fused", None, False),
                     ("aes", "cuda", 8, False)]
         if model == "gcn":
             configs += [("aes", "torch", None, True),
                         ("aes", "cuda", None, True), ("aes", "cuda", 8, True)]
-        logits = {}
+        logits, accs = {}, {}
         for strategy, backend, bits, fuse in configs:
             kw = dict(sh_width=W_MAIN, strategy=strategy, backend=backend,
                       quantize_bits=bits, fuse_layers=fuse, device=device)
@@ -517,9 +596,13 @@ def _main_path(P, ds, device, decodes) -> dict:
                                      f"fused_layer {per_call['fused_layer']} "
                                      "times, not once per layer")
             logits[(strategy, backend, bits, fuse)] = out
+            accs[(strategy, backend, bits, fuse)] = acc
+            if (strategy, backend) == ("full", "torch"):
+                full_acc[model] = acc
             log({"phase": "main_path", "model": model, "strategy": strategy,
                  "backend": backend, "quant_bits": bits,
                  "fuse_layers": fuse, "accuracy": acc,
+                 "accuracy_lost_vs_full": full_acc[model] - acc,
                  "evaluate_wall_s": wall, "launches_per_evaluate": per_call,
                  "live_width_decodes": decoded})
         hook.remove()
@@ -545,9 +628,14 @@ def _main_path(P, ds, device, decodes) -> dict:
             torch.testing.assert_close(
                 got, want, rtol=1e-4, atol=1e-4,
                 msg=lambda m, a=got_key, b=want_key: f"{model} {a} vs {b}: {m}")
+            acc_diff = accs[got_key] - accs[want_key]
             log({"phase": "main_path_logits", "model": model,
                  "kernel_path": list(got_key), "eager_path": list(want_key),
-                 "max_abs_err": float((got - want).abs().max())})
+                 "max_abs_err": float((got - want).abs().max()),
+                 "accuracy_diff": acc_diff})
+            if abs(acc_diff) > 1e-3:
+                raise AssertionError(f"{model} {got_key} vs {want_key}: "
+                                     f"accuracies {acc_diff} apart")
     # the standalone Eq. 2 step (no evaluate path calls it, in either
     # package): the reddit features quantized to uint8, dequantized on the card
     qf = P.quantize(ds.features, 8)
@@ -560,6 +648,45 @@ def _main_path(P, ds, device, decodes) -> dict:
          "bit_exact": True})
     launches = P.ops.launch_counts()              # ... and ends here
     log({"phase": "main_path_launches", "launches": launches})
+    return launches, full_acc
+
+
+def presampled_path(P, ds, module, full_acc) -> dict:
+    """The trained GCN through ``make_presampled_agg(adj, W_MAIN, "aes",
+    backend)``: ``"cuda"`` (the sampler kernel once, ``ell_spmm`` once a
+    layer) against ``"torch"``, logits to 1e-4 and accuracies to 0.001.
+    Returns the launches of the run (counts set to 0 at its start)."""
+    torch = P.torch
+    adj, x = ds.gcn_adj, ds.features
+    out = {}
+    P.ops.reset_launch_counts()                   # the path starts here
+    for backend in ("cuda", "torch"):
+        t0 = time.perf_counter()
+        agg = P.make_presampled_agg(adj, W_MAIN, "aes", backend,
+                                    device=adj.device)
+        with torch.inference_mode():
+            logits = module(adj, x, agg)
+        acc = P.accuracy(logits, ds.labels, ds.test_mask)   # a host read
+        out[backend] = (logits, acc, time.perf_counter() - t0)
+    launches = P.ops.launch_counts()              # ... and ends here
+    (got, acc, wall), (want, twin_acc, twin_wall) = out["cuda"], out["torch"]
+    if got.shape != (adj.num_rows, ds.spec.num_classes) or \
+            not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"presampled: bad logits {tuple(got.shape)}")
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4,
+                               msg=lambda m: f"presampled cuda vs torch: {m}")
+    log({"phase": "main_path_presampled", "model": "gcn", "strategy": "aes",
+         "W": W_MAIN, "accuracy": acc, "torch_accuracy": twin_acc,
+         "accuracy_lost_vs_full": full_acc["gcn"] - acc,
+         "max_abs_err": float((got - want).abs().max()), "wall_s": wall,
+         "torch_wall_s": twin_wall, "launches": launches})
+    want_launches = dict.fromkeys(launches, 0)
+    want_launches.update(aes_sample=1, ell_spmm=2)
+    if launches != want_launches:
+        raise AssertionError(f"presampled path launched {launches}, not "
+                             f"{want_launches}")
+    if abs(acc - twin_acc) > 1e-3:
+        raise AssertionError(f"presampled: accuracy {acc} against {twin_acc}")
     return launches
 
 
@@ -595,21 +722,20 @@ def _plan_log(P, plan, adj) -> dict:
             "measured_sample_us": plan.measured_sample_us}
 
 
-def tuned_path(P, ds, device):
-    """The tuned path on the card: ``evaluate(strategy="auto")`` at block
-    and graph granularity and with the fused GCN layers, each cold (it
-    tunes) and warm (a plan-cache hit); each plan's ``cuda`` logits against
-    the eager ``torch`` backend on the same plan.  Returns the launches of
-    the run (counts set to 0 at its start) and the GCN's natural f32
-    blocked plan."""
-    torch, np = P.torch, P.np
+def tuned_path(P, ds, device, modules, full_acc):
+    """The tuned path on the card with the trained ``modules``:
+    ``evaluate(strategy="auto")`` at block and graph granularity and with
+    the fused GCN layers, each cold (it tunes) and warm (a plan-cache
+    hit); each plan's ``cuda`` logits and accuracy against the eager
+    ``torch`` backend on the same plan.  Returns the launches of the run
+    (counts set to 0 at its start) and the GCN's natural f32 blocked
+    plan."""
+    torch = P.torch
     P.ops.reset_launch_counts()                   # the tuned path starts here
     kept = None
     for model in ("gcn", "graphsage"):
-        init_fn, _, adj_name = P.MODELS[model]
-        adj = getattr(ds, adj_name)
-        params = init_fn(np.random.default_rng(0), ds.features.shape[1],
-                         HIDDEN, ds.spec.num_classes, device=device)
+        adj = getattr(ds, P.MODELS[model][2])
+        params = modules[model]
         # (granularity, layout, quantize_bits, fuse_layers)
         cases = [("block", layout, bits, False)
                  for layout in ("natural", "degree_sorted")
@@ -658,14 +784,21 @@ def tuned_path(P, ds, device):
                 got, want, rtol=1e-4, atol=1e-4,
                 msg=lambda m: f"{model} auto {gran} {layout} {bits} "
                               f"fuse={fuse}: {m}")
+            twin_acc = P.accuracy(want, ds.labels, ds.test_mask)
             log({"phase": "tuned_path", "model": model, "granularity": gran,
                  "layout": layout, "quant_bits": bits, "fuse_layers": fuse,
-                 "accuracy": acc, "evaluate_wall_s": walls[1],
+                 "accuracy": acc, "accuracy_lost_vs_full": full_acc[model]
+                 - acc, "torch_twin_accuracy": twin_acc,
+                 "evaluate_wall_s": walls[1],
                  "cold_evaluate_wall_s": walls[0], "tune_s": tune_s,
                  "warm_tune_lookup_s": lookup_s,
                  "launches_per_evaluate": per_call[1],
                  "cold_launches": per_call[0], "plan": _plan_log(P, plan, adj),
                  "vs_torch_max_abs_err": float((got - want).abs().max())})
+            if abs(acc - twin_acc) > 1e-3:
+                raise AssertionError(f"{model} auto {gran} {layout} {bits} "
+                                     f"fuse={fuse}: accuracy {acc} against "
+                                     f"the torch twin's {twin_acc}")
             if (model, gran, layout, bits) == ("gcn", "block", "natural",
                                                None):
                 kept = plan
@@ -807,8 +940,9 @@ def fused_int8_layers(P, ds, params, qf, errs) -> None:
 
 def gcn_hidden(P, ds, ell, live):
     """The GCN's hidden features, the F = 64 operand of its second
-    aggregation: layer 1 (F = 128 -> 64, ReLU) of the GCN from the main
-    path's seed, on the kernel path's W = 128 aggregation."""
+    aggregation: layer 1 (F = 128 -> 64, ReLU) of a GCN with random
+    parameters from seed 0 (the untrained initialisation), on the kernel
+    path's W = 128 aggregation."""
     torch, np = P.torch, P.np
     x = ds.features
     params = P.MODELS["gcn"][0](np.random.default_rng(0), x.shape[1], HIDDEN,
@@ -1074,11 +1208,12 @@ def block_entry(P, ds, plan, hidden, launches, errs, timer, plain_timer,
 
 def fused_layer_entry(P, ds, ell, live, launches, errs, timer, plain_timer,
                       ell_in, uniq) -> dict:
-    """The fused layer at the main path's GCN layers (its parameters from
-    the main path's seed): layer 1 (F=128 -> H=64, ReLU) in f32 and with
-    the uint8 features, layer 2 (F=64 -> H=41, no activation) on layer 1's
-    output; each beside the port's unfused pipeline on the same operands
-    (the ``ell_spmm`` kernel, ``torch.matmul``, bias, ReLU).  The bound
+    """The fused layer at the main path's GCN layer shapes (random
+    parameters from seed 0, the untrained initialisation): layer 1
+    (F=128 -> H=64, ReLU) in f32 and with the uint8 features, layer 2
+    (F=64 -> H=41, no activation) on layer 1's output; each beside the
+    port's unfused pipeline on the same operands (the ``ell_spmm``
+    kernel, ``torch.matmul``, bias, ReLU).  The bound
     counts the transform's operations at the 3xTF32 rate the kernel uses
     and the aggregation's on the float32 pipe; both bounds are reported.
     The split of each layer: ``gather_phase_ms`` is the kernel at H = 1,
@@ -1203,9 +1338,12 @@ def port():
                                         partition_width_buckets)
     from repro_torch.core.quantization import dequantize, quantize
     from repro_torch.core.sampling import sample_csr_to_block_ell
+    from repro_torch.configs import PAPER_GNN_CONFIGS
     from repro_torch.exec import PlanExecutor
-    from repro_torch.gnn import evaluate, infer_logits, make_dataset
-    from repro_torch.gnn.models import MODELS
+    from repro_torch.gnn import (evaluate, infer_logits, make_dataset,
+                                 make_presampled_agg, train_model)
+    from repro_torch.gnn.models import MODELS, exact_agg
+    from repro_torch.gnn.train import accuracy, cross_entropy
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import aes_sample as aes_mod
     from repro_torch.kernels import block_ell_spmm as block_mod
@@ -1228,6 +1366,8 @@ def main() -> None:
         _fail("torch.cuda.is_available() is False: this smoke test runs "
               "on a CUDA card only")
     P = port()
+    global W_MAIN, HIDDEN
+    W_MAIN, HIDDEN = paper_widths(P)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
@@ -1262,7 +1402,7 @@ def main() -> None:
     check_parity(P, device, errs)
     torch.cuda.synchronize()
 
-    # -- 4. main path at full size ------------------------------------------
+    # -- 4. training, then the main path at full size -----------------------
     t0 = time.perf_counter()
     ds = P.make_dataset("reddit", scale=1.0, seed=0, max_avg_degree=None,
                         device=device)
@@ -1273,19 +1413,22 @@ def main() -> None:
          "rows_above_W": int((row_nnz > W_MAIN).sum()),
          "feat": ds.features.shape[1], "classes": ds.spec.num_classes,
          "build_s": time.perf_counter() - t0})
-    launches = main_path(P, ds, device)
+    modules = train_phase(P, ds, device)
+    launches, full_acc = main_path(P, ds, device, modules)
     torch.cuda.synchronize()
     for name, n in launches.items():
         if n <= 0 and name != "block_ell_spmm":
             raise AssertionError(f"kernel {name} was not launched on the "
                                  "main path")
-    tuned, plan = tuned_path(P, ds, device)
+    presampled = presampled_path(P, ds, modules["gcn"], full_acc)
+    tuned, plan = tuned_path(P, ds, device, modules, full_acc)
     torch.cuda.synchronize()
     for name in ("block_ell_spmm", "fused_layer"):
         if tuned[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  "tuned path")
-    launches = {k: n + tuned[k] for k, n in launches.items()}
+    launches = {k: n + presampled[k] + tuned[k]
+                for k, n in launches.items()}
 
     errs["fused_layer_int8"] = []
     int8_layers(P, ds, device, errs)

@@ -1,10 +1,13 @@
 """GNN pillar of the port: synthetic Table 2 datasets, GCN/GraphSAGE
-modules, and the sampled-inference harness."""
+modules, full-batch training and the sampled-inference harness."""
 from repro_torch.gnn.convert import params_from_numpy
 from repro_torch.gnn.datasets import SYNTHETIC_DATASETS, make_dataset
 from repro_torch.gnn.infer import evaluate, infer_logits, inference_accuracy
-from repro_torch.gnn.models import GCN, GraphSAGE, init_gcn, init_sage
+from repro_torch.gnn.models import (GCN, GCNParams, GraphSAGE, SAGEParams,
+                                    init_gcn, init_sage, make_presampled_agg)
+from repro_torch.gnn.train import cross_entropy, train_model
 
-__all__ = ["GCN", "GraphSAGE", "init_gcn", "init_sage", "SYNTHETIC_DATASETS",
-           "make_dataset", "evaluate", "infer_logits", "inference_accuracy",
-           "params_from_numpy"]
+__all__ = ["GCN", "GraphSAGE", "GCNParams", "SAGEParams", "init_gcn",
+           "init_sage", "make_presampled_agg", "SYNTHETIC_DATASETS",
+           "make_dataset", "train_model", "cross_entropy", "evaluate",
+           "infer_logits", "inference_accuracy", "params_from_numpy"]

@@ -10,7 +10,7 @@ XLA.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -37,6 +37,57 @@ def make_sampled_agg(sh_width: int, strategy: str = "aes",
                         quantized=quantized)
 
     return agg
+
+
+def make_presampled_agg(csr: CSR, sh_width: int, strategy: str = "aes",
+                        backend: str = "torch", *, device=None) -> AggFn:
+    """Sample ``csr`` once and reuse the ELL on every call (the paper's
+    kernel resamples on every SpMM).
+
+    ``backend="torch"`` aggregates through ``ref.ell_spmm_rowloop``;
+    ``"cuda"`` samples with the ``aes_sample`` kernel (AES; AFS and SFS
+    sample in torch) and aggregates with the ``ell_spmm`` kernel on the
+    sampler's live widths.  ``csr`` is copied to ``device`` (default
+    ``"cuda"``), where the ELL lives; the returned ``agg(_csr, h)``
+    ignores its CSR argument.
+    """
+    from repro_torch.core.aes_spmm import sample
+
+    if backend not in ("torch", "cuda"):
+        raise ValueError(f"unknown backend {backend!r} (expected 'torch' "
+                         "or 'cuda')")
+    ell = sample(csr.to(resolve_device(device)), sh_width, strategy,
+                 backend=backend)
+
+    def agg(_csr: CSR, h: torch.Tensor) -> torch.Tensor:
+        if backend == "cuda":
+            from repro_torch.kernels import ops
+
+            return ops.ell_spmm(ell, h)
+        return ref.ell_spmm_rowloop(ell.val, ell.col, h)
+
+    return agg
+
+
+class GCNParams(NamedTuple):
+    """The reference package's GCN parameters, by field name (what
+    ``convert.params_from_numpy`` takes; :class:`GCN` holds the same
+    names as its parameters)."""
+    w1: np.ndarray
+    b1: np.ndarray
+    w2: np.ndarray
+    b2: np.ndarray
+
+
+class SAGEParams(NamedTuple):
+    """The reference package's GraphSAGE parameters, by field name (see
+    :class:`GCNParams`)."""
+    w_self1: np.ndarray
+    w_neigh1: np.ndarray
+    b1: np.ndarray
+    w_self2: np.ndarray
+    w_neigh2: np.ndarray
+    b2: np.ndarray
 
 
 def _params(**tensors) -> dict:

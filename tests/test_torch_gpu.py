@@ -27,6 +27,7 @@ from repro_torch.core.graph import CSR, csr_from_edges, ell_live_widths
 from repro_torch.core.graph import partition_width_buckets
 from repro_torch.core.quantization import quantize
 from repro_torch.core.sampling import sample_csr_to_block_ell
+from repro_torch.gnn import make_dataset, make_presampled_agg, train_model
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import aes_sample as aes_mod
 from repro_torch.kernels import block_ell_spmm as block_mod
@@ -346,3 +347,37 @@ def test_block_ell_spmm_matches_plain(cuda):
         torch.cuda.synchronize()
         assert ops.launch_counts()["block_ell_spmm"] == \
             len(operands) * sum(len(p) for p in parts)
+
+
+
+def test_training_and_presampled_agg_on_the_card(cuda):
+    """Five epochs of ``train_model`` on the card against the same on the
+    CPU, both models: every parameter within 1e-4 (the exact aggregation
+    and its backward sum in atomic order on the card).  Then the trained
+    GCN through ``make_presampled_agg``: ``"cuda"`` (one ``aes_sample``
+    launch, then one ``ell_spmm`` a call) against ``"torch"``, logits to
+    1e-5."""
+    ds = make_dataset("reddit", scale=0.001, seed=3, max_avg_degree=16.0,
+                      device="cpu")
+    trained = {}
+    for model in ("gcn", "graphsage"):
+        got, _ = train_model(ds, model, hidden=16, epochs=5, device=cuda)
+        want, _ = train_model(ds, model, hidden=16, epochs=5, device="cpu")
+        for (k, p), q in zip(got.named_parameters(), want.parameters()):
+            assert p.is_cuda and not p.requires_grad
+            torch.testing.assert_close(p.cpu(), q, rtol=1e-4, atol=1e-4,
+                                       msg=lambda m: f"{model} {k}: {m}")
+        trained[model] = got
+    gcn = trained["gcn"]
+    adj, x = ds.gcn_adj.to(cuda), ds.features.to(cuda)
+    for W in (16, 128):
+        ops.reset_launch_counts()
+        cagg = make_presampled_agg(adj, W, "aes", "cuda", device=cuda)
+        tagg = make_presampled_agg(adj, W, "aes", "torch", device=cuda)
+        with torch.inference_mode():
+            torch.testing.assert_close(gcn(adj, x, cagg), gcn(adj, x, tagg),
+                                       rtol=1e-5, atol=1e-5,
+                                       msg=lambda m: f"W={W}: {m}")
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        assert (counts["aes_sample"], counts["ell_spmm"]) == (1, 2), counts

@@ -1,6 +1,8 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` load neither
-JAX nor any module of the JAX package, the port's entry points default to
-the card (and raise without one instead of running on the CPU), and the
+JAX nor any module of the JAX package (the optimizer, the configs and the
+example modules included), the port's entry points default to the card
+(and raise without one instead of running on the CPU: ``evaluate``,
+``make_dataset``, ``train_model``, ``make_presampled_agg``), and the
 smoke script refuses to report a result without a card or without the
 repository around it."""
 from __future__ import annotations
@@ -28,9 +30,14 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
+for name in ("repro_torch.optim.adamw", "repro_torch.configs.gnn_paper",
+             "repro_torch.examples.quickstart",
+             "repro_torch.examples.gnn_inference", "repro_torch.gnn.train"):
+    assert name in names, name
 print("MODULES", len(names))
 
-from repro_torch.gnn import evaluate, init_gcn, make_dataset
+from repro_torch.gnn import (evaluate, init_gcn, make_dataset,
+                             make_presampled_agg, train_model)
 ds = make_dataset("cora", scale=0.01, device="cpu")
 model = init_gcn(np.random.default_rng(0), 96, 8, 7, device="cpu")
 if torch.cuda.is_available():
@@ -47,6 +54,15 @@ else:
         make_dataset("cora", scale=0.01)
     except RuntimeError:
         print("DATASET_RAISED_WITHOUT_CARD")
+    for name, call in (
+            ("TRAIN", lambda: train_model(ds, "gcn", hidden=8, epochs=1)),
+            ("PRESAMPLED", lambda: make_presampled_agg(ds.gcn_adj, 8,
+                                                       backend="cuda"))):
+        try:
+            call()
+        except RuntimeError as exc:
+            assert "cuda" in str(exc), exc
+            print(name + "_RAISED_WITHOUT_CARD")
 """
 
 
@@ -63,8 +79,8 @@ def test_port_loads_no_jax_and_defaults_to_the_card():
     n_modules = int(out.stdout.split("MODULES")[1].split()[0])
     assert n_modules >= 15
     if "EVALUATED_ON_CUDA" not in out.stdout:
-        assert "RAISED_WITHOUT_CARD" in out.stdout
-        assert "DATASET_RAISED_WITHOUT_CARD" in out.stdout
+        for what in ("", "DATASET_", "TRAIN_", "PRESAMPLED_"):
+            assert what + "RAISED_WITHOUT_CARD" in out.stdout, what
 
 
 def _imported_roots(path: Path):
