@@ -67,6 +67,22 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    (1e-4, accuracies to 0.001), each line with ``accuracy_lost_vs_full``;
    then the host costs the tuned path adds (the CSR digest pass and the
    features hash of a quantized plan, on the input and a hidden layer).
+   Then incremental plan maintenance, its launch counts set to 0 just
+   before it and read just after: three blocked plans of ``gcn_adj``
+   (``tune_blocked``'s defaults with measurement off; natural f32,
+   natural int8 with 64 feature rows changed inside the stored range,
+   degree-sorted f32), each patched by ``apply_edge_updates`` for two
+   deltas drawn from seed 0 (``window``: 128 deletions and 128 additions
+   on two adjacent 4096-row blocks; ``churn_1pct``: 1% of the edges, half
+   each, on 2% of the rows drawn by (deg + 1)^2); each patch, the merge
+   alone and a cold ``tune_blocked`` of the patched graph timed (one
+   untimed round, the median of 3); the patched plan equal to the cold
+   tune (natural plans: fingerprint, digests, tables, buckets and operand
+   bytes; degree-sorted: fingerprint), served from the plan cache with no
+   tuning through ``block_ell_spmm``, its output bit-identical to the cold
+   plan's (natural plans) and to its ``torch`` twin (int8 to 1e-4), and
+   the merge on the card equal to the same call on the CPU; one
+   ``incremental`` line a pair, speed ratios logged, not gated.
    The kernel checks of the int8 layers and of phase 5 keep random
    parameters from a numpy seed: they hold kernels, not accuracy.
 5. Kernel times at the main path's shapes (CUDA events around batches of
@@ -834,6 +850,238 @@ def host_costs(P, ds) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 4, last: incremental plan maintenance
+# ---------------------------------------------------------------------------
+
+#: the ``window`` delta's deletions and additions, on two adjacent blocks
+WINDOW_EDGES = 128
+#: the ``churn_1pct`` delta (benchmarks/incremental_update.py's regime):
+#: this share of the edges, half deleted and half added, on this share of
+#: the rows, drawn with probability proportional to (deg + 1)^2
+CHURN_FRAC = 0.01
+CHURN_ACTIVE_FRAC = 0.02
+#: feature rows the int8 plan's patch re-quantizes
+REQUANT_ROWS = 64
+
+
+def _delta(np, rng, keys, n, cand_keys, k, draw_rows):
+    """``k`` deletions drawn from ``cand_keys`` (unique present keys) and
+    ``k`` additions: rows from ``draw_rows(size)``, columns uniform,
+    rejected where present, deleted or drawn before."""
+    dels = rng.choice(cand_keys, size=min(k, cand_keys.size), replace=False)
+    adds = np.zeros(0, np.int64)
+    while adds.size < k:
+        size = 32 * (k - adds.size) + 64     # hub rows reject most draws
+        new = draw_rows(size) * n + rng.integers(0, n, size)
+        pos = np.minimum(np.searchsorted(keys, new), keys.size - 1)
+        new = new[(keys[pos] != new) & ~np.isin(new, dels)]
+        new = np.concatenate([adds, new])
+        _, first = np.unique(new, return_index=True)
+        adds = new[np.sort(first)][:k]
+    return ([(int(a // n), int(a % n)) for a in adds],
+            [(int(d // n), int(d % n)) for d in dels])
+
+
+def make_deltas(P, adj, block_rows, seed=0) -> dict:
+    """The ``window`` and ``churn_1pct`` deltas, drawn with numpy from
+    ``seed`` (vectorized: the reference's ``make_delta`` walks a Python set
+    of every edge)."""
+    np = P.np
+    rng = np.random.default_rng(seed)
+    n = adj.num_rows
+    rp = adj.row_ptr.cpu().numpy().astype(np.int64)
+    # sorted unique row * n + col keys of the present edges
+    keys = np.unique(np.repeat(np.arange(n), np.diff(rp)) * n
+                     + adj.col_ind.cpu().numpy())
+    # window: two adjacent full blocks
+    b = int(rng.integers(0, n // block_rows - 1))
+    r0, r1 = b * block_rows, (b + 2) * block_rows
+    window = _delta(np, rng, keys, n, keys[(keys >= r0 * n) & (keys < r1 * n)],
+                    WINDOW_EDGES, lambda size: rng.integers(r0, r1, size))
+    # churn: an active row set drawn by (deg + 1)^2
+    deg = np.diff(rp).astype(np.float64)
+    p = (deg + 1.0) ** 2 / ((deg + 1.0) ** 2).sum()
+    active = rng.choice(n, size=max(int(n * CHURN_ACTIVE_FRAC), 2),
+                        replace=False, p=p)
+    is_active = np.zeros(n, bool)
+    is_active[active] = True
+    p_active = p[active] / p[active].sum()
+    churn = _delta(np, rng, keys, n, keys[is_active[keys // n]],
+                   max(int(adj.nnz * CHURN_FRAC / 2), 1),
+                   lambda size: rng.choice(active, size=size, p=p_active))
+    return {"window": window, "churn_1pct": churn}
+
+
+def _changed_features(P, x, seed=0):
+    """(features with ``REQUANT_ROWS`` rows replaced by copies of other
+    rows, the replaced rows): the rows holding the global min or max are
+    kept, so every value stays inside the stored quantization range and
+    the range itself does not move."""
+    torch, np = P.torch, P.np
+    rng = np.random.default_rng(seed)
+    extreme = ((x == x.max()) | (x == x.min())).any(dim=1).cpu().numpy()
+    rows = rng.choice(np.flatnonzero(~extreme), size=2 * REQUANT_ROWS,
+                      replace=False)
+    x2 = x.clone()
+    dst = torch.from_numpy(rows[:REQUANT_ROWS]).to(x.device)
+    x2[dst] = x[torch.from_numpy(rows[REQUANT_ROWS:]).to(x.device)]
+    return x2, sorted(int(r) for r in rows[:REQUANT_ROWS])
+
+
+def _median_s(torch, fn, setup=None, reps=3):
+    """Host seconds of ``fn(setup())`` with the card synchronized around
+    it: one untimed round, then the median of ``reps``; returns (s, the
+    last result).  ``setup`` runs outside the timer."""
+    times, out = [], None
+    for i in range(reps + 1):
+        arg = setup() if setup is not None else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(arg)
+        torch.cuda.synchronize()
+        if i:
+            times.append(time.perf_counter() - t0)
+    return statistics.median(times), out
+
+
+def _same_plan(torch, got, want) -> bool:
+    return (got.fingerprint == want.fingerprint
+            and got.block_digests == want.block_digests
+            and got.bell.widths == want.bell.widths
+            and got.bell.strategies == want.bell.strategies
+            and got.buckets == want.buckets
+            and all(torch.equal(getattr(got.bell, f), getattr(want.bell, f))
+                    for f in ("val", "col", "live_w")))
+
+
+def incremental_path(P, ds) -> dict:
+    """Patch three blocked plans of reddit's ``gcn_adj`` (natural f32,
+    natural int8 with ``REQUANT_ROWS`` changed feature rows, degree-sorted
+    f32; ``tune_blocked``'s defaults with measurement off) for two deltas,
+    and hold each patch against a cold tune of the patched graph: plan
+    parity, a plan-cache hit served through ``block_ell_spmm``, outputs
+    against the cold plan and the ``torch`` twin, and the merge on the card
+    against the CPU.  Times the patch, ``apply_csr_deltas``, its delta
+    parse, the hash of the touched digest blocks and the cold tune, each
+    alone (the last two on fresh copies of the CSR, so the digest memo
+    misses).  Returns the launches of the run (counts set to 0 at its
+    start), less those of the cold plans run for comparison."""
+    torch = P.torch
+    adj, x = ds.gcn_adj, ds.features
+    kw = dict(refresh=True, measure_plan=False, measure_buckets=False)
+    block_rows = inspect.signature(P.tune_blocked).parameters[
+        "block_rows"].default
+    deltas = make_deltas(P, adj, block_rows)
+    x2, requant = _changed_features(P, x)
+    cpu_adj = adj.to("cpu")
+    cpu_merge = {name: P.apply_csr_deltas(cpu_adj, *d)
+                 for name, d in deltas.items()}
+    failures, compared = [], {}
+    t_phase = time.perf_counter()
+    P.ops.reset_launch_counts()                   # the path starts here
+    for pname, tkw, feats, rows in (
+            ("natural_f32", {}, x, ()),
+            ("natural_int8", {"quant": 8}, x2, requant),
+            ("degree_sorted_f32", {"layout": "degree_sorted"}, x, ())):
+        base = P.tune_blocked(adj, x, cache=P.PlanCache(), **kw, **tkw)
+        for dname, (adds, dels) in deltas.items():
+            cache = P.PlanCache()
+            patch_s, (patched, new_csr, report) = _median_s(
+                torch, lambda _: P.apply_edge_updates(
+                    base, adj, adds, dels, features=feats,
+                    requant_rows=rows, cache=cache))
+            merge_s, (_, touched) = _median_s(
+                torch, lambda _: P.apply_csr_deltas(adj, adds, dels))
+            # the host parse of the delta lists, and the patch's host hash
+            # of the touched digest blocks, each alone
+            parse_s, _ = _median_s(
+                torch, lambda _: (P.graph_mod._parse_deltas(adds, "a"),
+                                  P.graph_mod._parse_deltas(dels, "d")))
+            digest_s, _ = _median_s(
+                torch, lambda c: P.csr_block_digests(
+                    c, blocks=report.touched_digest_blocks),
+                setup=lambda: P.CSR(*(t.clone() for t in new_csr[:3]),
+                                    new_csr.num_cols))
+            cold_s, cold = _median_s(
+                torch, lambda c: P.tune_blocked(c, feats, cache=P.PlanCache(),
+                                                **kw, **tkw),
+                setup=lambda: P.CSR(*(t.clone() for t in new_csr[:3]),
+                                    new_csr.num_cols))
+            # the merge on the card against the CPU
+            want_csr, want_touched = cpu_merge[dname]
+            merge_ok = new_csr.device.type == "cuda" and all(
+                torch.equal(a.cpu(), b)
+                for a, b in zip(new_csr[:3], want_csr[:3])) and \
+                P.np.array_equal(touched, want_touched)
+            # plan parity with the cold tune
+            if "layout" in tkw:
+                parity = patched.fingerprint == cold.fingerprint
+            else:
+                parity = _same_plan(torch, patched, cold) and (
+                    patched.quantized is None or torch.equal(
+                        patched.quantized.q, cold.quantized.q))
+            # the patched plan served from the cache
+            P.obs.reset()
+            before = P.ops.launch_counts()
+            out = P.aes_spmm(new_csr, feats, strategy="auto",
+                             granularity="block", plan_cache=cache,
+                             tune_kwargs={"layout": tkw["layout"]}
+                             if "layout" in tkw else None)
+            torch.cuda.synchronize()
+            served = P.ops.launch_counts()["block_ell_spmm"] - \
+                before["block_ell_spmm"]
+            counters = P.obs.default_registry().counters("plan_cache.")
+            spans = {sp.name for sp in P.obs.default_tracer().spans()}
+            hit = ("tune.decision" not in spans
+                   and counters.get("plan_cache.hit_memory", 0) >= 1
+                   and counters.get("plan_cache.miss", 0) == 0
+                   and len(cache) == 1 and cache.plans()[0].version == 1)
+            twin = _torch_twin(P, patched).run(feats)
+            twin_err = float((out - twin).abs().max())
+            cold_err = None
+            if "layout" not in tkw:
+                before = P.ops.launch_counts()
+                cold_err = float((out - cold.run(feats)).abs().max())
+                for k, n in P.ops.launch_counts().items():
+                    compared[k] = compared.get(k, 0) + n - before[k]
+            # the u8 gather's tolerance; f32 rounds as its plain version
+            twin_tol = 1e-4 if "quant" in tkw else 0.0
+            ok = (merge_ok and parity and hit and served >= 1
+                  and twin_err <= twin_tol and cold_err in (None, 0.0)
+                  and out.shape == (adj.num_rows, x.shape[1])
+                  and bool(torch.isfinite(out).all()))
+            log({"phase": "incremental", "plan": pname, "delta": dname,
+                 "additions": len(adds), "deletions": len(dels),
+                 "touched_rows": report.touched_rows,
+                 "touched_blocks": len(report.touched_blocks),
+                 "num_blocks": report.num_blocks,
+                 "touched_digest_blocks": len(report.touched_digest_blocks),
+                 "requantized_rows": report.requantized_rows,
+                 "edges_after": new_csr.nnz,
+                 "widths": {str(w): patched.bell.widths.count(w)
+                            for w in sorted(set(patched.bell.widths))},
+                 "patch_s": patch_s, "apply_csr_deltas_s": merge_s,
+                 "parse_s": parse_s, "touched_digest_s": digest_s,
+                 "cold_tune_s": cold_s, "speedup": cold_s / patch_s,
+                 "plan_parity": parity, "cache_hit": hit,
+                 "served_block_ell_spmm_launches": served,
+                 "vs_cold_max_abs_err": cold_err,
+                 "vs_torch_twin_max_abs_err": twin_err,
+                 "merge_equals_cpu": merge_ok, "ok": ok})
+            if not ok:
+                failures.append(f"{pname}/{dname}")
+    launches = {k: n - compared.get(k, 0)         # ... and ends here
+                for k, n in P.ops.launch_counts().items()}
+    log({"phase": "incremental_launches", "launches": launches,
+         "comparison_launches": compared,
+         "wall_s": time.perf_counter() - t_phase})
+    if failures:
+        raise AssertionError(f"incremental: {failures} failed (the "
+                             "incremental lines above say which check)")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 5: timing helpers
 # ---------------------------------------------------------------------------
 
@@ -1332,8 +1580,9 @@ def port():
 
     from repro_torch import obs
     from repro_torch.core import graph as graph_mod
-    from repro_torch.core.aes_spmm import sample
-    from repro_torch.core.graph import (CSR, ELL, csr_from_edges,
+    from repro_torch.core.aes_spmm import aes_spmm, sample
+    from repro_torch.core.graph import (CSR, ELL, apply_csr_deltas,
+                                        csr_block_digests, csr_from_edges,
                                         ell_live_widths,
                                         partition_width_buckets)
     from repro_torch.core.quantization import dequantize, quantize
@@ -1351,7 +1600,9 @@ def port():
     from repro_torch.kernels import ell_spmm as ell_mod
     from repro_torch.kernels import fused_layer as layer_mod
     from repro_torch.kernels import fused_spmm as fused_mod
-    from repro_torch.tuning import PlanCache, features_fingerprint, fingerprint
+    from repro_torch.tuning import (PlanCache, apply_edge_updates,
+                                    features_fingerprint, fingerprint,
+                                    tune_blocked)
 
     return SimpleNamespace(**{k: v for k, v in locals().items()})
 
@@ -1427,7 +1678,11 @@ def main() -> None:
         if tuned[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  "tuned path")
-    launches = {k: n + presampled[k] + tuned[k]
+    incremental = incremental_path(P, ds)
+    if incremental["block_ell_spmm"] <= 0:
+        raise AssertionError("kernel block_ell_spmm was not launched on "
+                             "the incremental path")
+    launches = {k: n + presampled[k] + tuned[k] + incremental[k]
                 for k, n in launches.items()}
 
     errs["fused_layer_int8"] = []

@@ -339,20 +339,21 @@ def pad_csr_to_ell(csr: CSR, width: int | None = None) -> ELL:
 
 def permute_csr_rows(csr: CSR, perm) -> CSR:
     """Reorder a CSR's rows by ``perm`` (row ``r`` of the result is row
-    ``perm[r]`` of the input); columns are untouched.  Host-side numpy
-    rebuild, one device crossing for the result; per-row edge order is
+    ``perm[r]`` of the input); columns are untouched.  Rebuilt on the
+    CSR's device (only ``perm`` crosses to it); per-row edge order is
     kept, so row ``r`` of the result is byte-identical to row ``perm[r]``.
     """
-    perm = np.asarray(perm, np.int64)
-    rp = _np(csr.row_ptr).astype(np.int64)
-    nnz = rp[1:] - rp[:-1]
-    counts = nnz[perm]
-    new_rp = np.zeros(csr.num_rows + 1, np.int64)
-    np.cumsum(counts, out=new_rp[1:])
-    idx = (np.repeat(rp[perm] - new_rp[:-1], counts)
-           + np.arange(int(new_rp[-1]), dtype=np.int64))
-    return _csr_on(new_rp.astype(np.int32), _np(csr.col_ind)[idx],
-                   _np(csr.val)[idx], csr.num_cols, csr.device)
+    dev = csr.device
+    perm = torch.as_tensor(np.asarray(perm, np.int64), device=dev)
+    rp = csr.row_ptr.long()
+    counts = (rp[1:] - rp[:-1])[perm]
+    new_rp = torch.zeros(csr.num_rows + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(counts, 0, out=new_rp[1:])
+    idx = (torch.repeat_interleave(rp[:-1][perm] - new_rp[:-1], counts,
+                                   output_size=csr.nnz)
+           + torch.arange(csr.nnz, dtype=torch.int64, device=dev))
+    return CSR(new_rp.to(torch.int32), csr.col_ind[idx], csr.val[idx],
+               csr.num_cols)
 
 
 def degree_sort_permutation(csr: CSR):
@@ -420,8 +421,9 @@ def csr_block_digests(csr: CSR, digest_rows: int = DIGEST_BLOCK_ROWS,
     digest_rows)`` and hashes the block's locally normalized row pointers
     (int64 bytes) and its ``col_ind``/``val`` slices — the reference
     package's bytes, so the same CSR gives the same digests in both.  The
-    hash runs on the host: on the card this is one device-to-host copy of
-    the CSR per tensor triple (memoized by identity and version).
+    hash runs on the host: on the card each block's ``row_ptr``,
+    ``col_ind`` and ``val`` slices are copied to it, only for the blocks
+    asked for and not yet memoized (by identity and version).
 
     Returns a list of 32-hex-char digests aligned with ``blocks`` (default:
     all ``num_digest_blocks`` blocks).
@@ -431,20 +433,18 @@ def csr_block_digests(csr: CSR, digest_rows: int = DIGEST_BLOCK_ROWS,
         blocks = range(num_digest_blocks(n, digest_rows))
     blocks = [int(b) for b in blocks]
     memo = _digest_memo(csr)
-    todo = [b for b in blocks if (digest_rows, b) not in memo]
-    if todo:
-        rp = _np(csr.row_ptr).astype(np.int64)
-        ci = np.ascontiguousarray(_np(csr.col_ind))
-        v = np.ascontiguousarray(_np(csr.val))
-        for b in todo:
-            r0 = min(b * digest_rows, n)
-            r1 = min(r0 + digest_rows, n)
-            lo, hi = int(rp[r0]), int(rp[r1])
-            h = hashlib.blake2b(digest_size=16)
-            h.update(np.ascontiguousarray(rp[r0:r1 + 1] - rp[r0]).tobytes())
-            h.update(ci[lo:hi].tobytes())
-            h.update(v[lo:hi].tobytes())
-            memo[(digest_rows, b)] = h.hexdigest()
+    for b in blocks:
+        if (digest_rows, b) in memo:
+            continue
+        r0 = min(b * digest_rows, n)
+        r1 = min(r0 + digest_rows, n)
+        rp = _np(csr.row_ptr[r0:r1 + 1]).astype(np.int64)
+        lo, hi = int(rp[0]), int(rp[-1])
+        h = hashlib.blake2b(digest_size=16)
+        h.update(np.ascontiguousarray(rp - rp[0]).tobytes())
+        h.update(np.ascontiguousarray(_np(csr.col_ind[lo:hi])).tobytes())
+        h.update(np.ascontiguousarray(_np(csr.val[lo:hi])).tobytes())
+        memo[(digest_rows, b)] = h.hexdigest()
     return [memo[(digest_rows, b)] for b in blocks]
 
 
@@ -458,3 +458,171 @@ def combine_block_digests(digests, num_rows: int, num_cols: int,
     for d in digests:
         h.update(bytes.fromhex(d))
     return h.hexdigest()
+
+
+def _parse_deltas(entries, what: str):
+    """Normalize a delta list to host (rows, cols, vals) int64/int64/f32
+    arrays, as the reference package does.
+
+    Accepts a sequence of ``(row, col)`` or ``(row, col, val)`` tuples (or
+    an equivalent 2-D array).  Missing vals default to 1.0.
+    """
+    entries = np.asarray(list(entries), np.float64)
+    if entries.size == 0:
+        z = np.zeros(0, np.int64)
+        return z, z, np.zeros(0, np.float32)
+    if entries.ndim != 2 or entries.shape[1] not in (2, 3):
+        raise ValueError(f"{what} must be (row, col[, val]) tuples, "
+                         f"got shape {entries.shape}")
+    rows = entries[:, 0].astype(np.int64)
+    cols = entries[:, 1].astype(np.int64)
+    if not (np.all(rows == entries[:, 0]) and np.all(cols == entries[:, 1])):
+        raise ValueError(f"{what} rows/cols must be integers")
+    vals = (entries[:, 2].astype(np.float32) if entries.shape[1] == 3
+            else np.ones(len(rows), np.float32))
+    return rows, cols, vals
+
+
+def _member(sorted_keys: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
+    """``query[i] in sorted_keys`` for every ``i``, by binary search."""
+    if sorted_keys.numel() == 0:
+        return torch.zeros(query.shape, dtype=torch.bool,
+                           device=query.device)
+    pos = torch.searchsorted(sorted_keys, query)
+    hit = pos < sorted_keys.numel()
+    return hit & (sorted_keys[pos.clamp(max=sorted_keys.numel() - 1)]
+                  == query)
+
+
+def apply_csr_deltas(csr: CSR, additions=(), deletions=()):
+    """Apply edge insertions and deletions to a CSR, tracking touched rows.
+
+    Deletions are applied first, then additions.  The node set is fixed:
+    deltas must reference existing row/col ids.  Every delta must change
+    the graph, so a patched plan's provenance is exact.
+
+    Args:
+      csr: source matrix.
+      additions: ``(row, col)`` or ``(row, col, val)`` tuples; ``val``
+        defaults to 1.0.  Adding a pair still present after deletions, a
+        pair listed twice, or an out-of-range id raises ``ValueError``.
+      deletions: ``(row, col)`` tuples.  A deletion removes *every* stored
+        instance of the pair; deleting an absent or repeated pair raises
+        ``ValueError``.
+
+    The merge runs on the CSR's device: only the delta lists, the scalars
+    the ``ValueError`` checks read and the new edge count cross to the
+    host.  Values are moved, never computed, so the result is the
+    reference package's, bit for bit.
+
+    Returns ``(new_csr, touched_rows)``, the CSR on ``csr``'s device and
+    ``touched_rows`` a sorted unique int64 numpy array (an empty delta
+    returns ``csr`` itself).  Untouched rows keep byte-identical
+    ``col_ind``/``val`` slices (their :func:`csr_block_digests` stay
+    valid); touched rows are re-sorted by column.
+    """
+    add_r, add_c, add_v = _parse_deltas(additions, "additions")
+    del_r, del_c, _ = _parse_deltas(deletions, "deletions")
+    if add_r.size == 0 and del_r.size == 0:
+        return csr, np.zeros(0, np.int64)
+
+    n, m = csr.num_rows, csr.num_cols
+    for what, r, c in (("additions", add_r, add_c),
+                       ("deletions", del_r, del_c)):
+        if r.size and (r.min() < 0 or r.max() >= n):
+            raise ValueError(f"{what} row out of range [0, {n})")
+        if c.size and (c.min() < 0 or c.max() >= m):
+            raise ValueError(f"{what} col out of range [0, {m})")
+    del_keys = del_r * m + del_c
+    if np.unique(del_keys).size != del_keys.size:
+        raise ValueError("duplicate (row, col) pair in deletions")
+
+    dev = csr.device
+    i64 = dict(dtype=torch.int64, device=dev)
+    rp = csr.row_ptr.long()
+    ci, v = csr.col_ind, csr.val
+    old_cnt = rp[1:] - rp[:-1]
+    edge_rows = torch.repeat_interleave(torch.arange(n, **i64), old_cnt,
+                                        output_size=csr.nnz)
+    touched = np.unique(np.concatenate([del_r, add_r]))
+    touched_mask = torch.zeros(n, dtype=torch.bool, device=dev)
+    touched_mask[torch.as_tensor(touched, device=dev)] = True
+    edge_touched = touched_mask[edge_rows]
+
+    # Every membership check involves touched rows only, so the key
+    # arithmetic stays O(touched edges).
+    tidx = torch.nonzero(edge_touched).flatten()
+    t_rows = edge_rows[tidx]
+    tkeys = t_rows * m + ci[tidx].long()
+    # Rows are column-sorted in every CSR the builders make, so tkeys is
+    # ascending and the merge below skips both sorts.
+    presorted = tkeys.numel() < 2 or not bool((tkeys[1:] < tkeys[:-1]).any())
+    stkeys = tkeys if presorted else torch.sort(tkeys).values
+
+    dk = torch.as_tensor(del_keys, device=dev)
+    missing = ~_member(stkeys, dk)
+    if bool(missing.any()):
+        i = int(np.flatnonzero(_np(missing))[0])
+        raise ValueError(f"deletion ({del_r[i]}, {del_c[i]}) not present")
+    keep_t = ~_member(torch.sort(dk).values, tkeys)
+    add_keys = add_r * m + add_c
+    if np.unique(add_keys).size != add_keys.size:
+        raise ValueError("duplicate (row, col) pair in additions")
+    surv_keys = tkeys[keep_t]                # order-preserving mask
+    if not presorted:
+        surv_keys = torch.sort(surv_keys).values
+    clash = _member(surv_keys, torch.as_tensor(add_keys, device=dev))
+    if bool(clash.any()):
+        i = int(np.flatnonzero(_np(clash))[0])
+        raise ValueError(f"addition ({add_r[i]}, {add_c[i]}) already present")
+
+    # surviving edges of touched rows + additions, sorted by (row, col)
+    sel = tidx[keep_t]
+    sb_r, sb_c, sb_v = t_rows[keep_t], ci[sel].long(), v[sel]
+    aorder = np.lexsort((add_c, add_r))
+    sa_r = torch.as_tensor(add_r[aorder], device=dev)
+    sa_c = torch.as_tensor(add_c[aorder], device=dev)
+    sa_v = torch.as_tensor(add_v[aorder], device=dev)
+    if presorted:
+        # two-way merge of the (already sorted) survivors with the sorted
+        # additions: no key is in both (the clash check above)
+        ak = sa_r * m + sa_c
+        nb, na = surv_keys.numel(), ak.numel()
+        pr = torch.empty(nb + na, **i64)
+        pc = torch.empty(nb + na, **i64)
+        pv = torch.empty(nb + na, dtype=v.dtype, device=dev)
+        bpos = torch.arange(nb, **i64) + torch.searchsorted(ak, surv_keys)
+        apos = torch.searchsorted(surv_keys, ak) + torch.arange(na, **i64)
+        pr[bpos], pc[bpos], pv[bpos] = sb_r, sb_c, sb_v
+        pr[apos], pc[apos], pv[apos] = sa_r, sa_c, sa_v
+    else:
+        # a stable sort on row * m + col is lexsort((col, row))
+        pr = torch.cat([sb_r, sa_r])
+        pc = torch.cat([sb_c, sa_c])
+        pv = torch.cat([sb_v, sa_v])
+        order = torch.sort(pr * m + pc, stable=True).indices
+        pr, pc, pv = pr[order], pc[order], pv[order]
+
+    new_cnt = (old_cnt - torch.bincount(t_rows[~keep_t], minlength=n)
+               + torch.bincount(sa_r, minlength=n))
+    new_rp = torch.zeros(n + 1, **i64)
+    torch.cumsum(new_cnt, 0, out=new_rp[1:])
+    nnz_new = int(new_rp[-1])
+    new_ci = torch.empty(nnz_new, dtype=ci.dtype, device=dev)
+    new_v = torch.empty(nnz_new, dtype=v.dtype, device=dev)
+
+    # untouched edges land at their original within-row offsets
+    un = torch.nonzero(~edge_touched).flatten()
+    shift = new_rp[:-1] - rp[:-1]
+    dest = un + shift[edge_rows[un]]
+    new_ci[dest] = ci[un]
+    new_v[dest] = v[un]
+
+    # touched rows: contiguous sorted groups at their new row starts
+    pstart = torch.zeros(n + 1, **i64)
+    torch.cumsum(torch.bincount(pr, minlength=n), 0, out=pstart[1:])
+    dest = new_rp[pr] + (torch.arange(pr.numel(), **i64) - pstart[pr])
+    new_ci[dest] = pc.to(ci.dtype)
+    new_v[dest] = pv
+
+    return CSR(new_rp.to(torch.int32), new_ci, new_v, m), touched

@@ -41,6 +41,9 @@ def storage_dtype(bits: int) -> torch.dtype:
     return torch.uint32
 
 
+_SIGNED_VIEW = {torch.uint16: torch.int16, torch.uint32: torch.int32}
+
+
 def _quantize(x, x_min, x_max, bits: int) -> torch.Tensor:
     levels = 2**bits - 1
     span = torch.clamp(x_max - x_min, min=_TINY)
@@ -68,9 +71,68 @@ def as_quantized(features, bits: int) -> QuantizedFeatures:
     return quantize(features, bits)
 
 
-def dequantize(qf: QuantizedFeatures) -> torch.Tensor:
-    """Eq. 2: ``q * scale + x_min`` as f32."""
-    return qf.q.to(torch.float32) * qf.scale + qf.x_min
+def requantize_rows(qf: QuantizedFeatures, rows, values) -> QuantizedFeatures:
+    """Re-encode only ``rows`` of a quantized matrix (Eq. 1) with its
+    stored global ``(x_min, x_max)`` range, on ``qf.q``'s device.
+
+    The rest of the operand is kept byte for byte; the range is not
+    widened, so updated values outside it clip to the boundary levels
+    (the incremental patch path re-quantizes the whole matrix past
+    :data:`DRIFT_THRESHOLD` instead).
+    """
+    rows = torch.as_tensor(rows, dtype=torch.int64, device=qf.q.device)
+    if rows.numel() == 0:
+        return qf
+    values = torch.as_tensor(values, dtype=torch.float32, device=qf.q.device)
+    q = qf.q.clone()
+    new = _quantize(values, qf.x_min, qf.x_max, qf.bits)
+    # torch has no index_put for uint16/uint32: write the same bytes
+    # through a signed view
+    signed = _SIGNED_VIEW.get(q.dtype)
+    if signed is None:
+        q[rows] = new
+    else:
+        q.view(signed)[rows] = new.view(signed)
+    return qf._replace(q=q)
+
+
+def dequantize_arrays(q: torch.Tensor, x_min, x_max, bits: int,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Eq. 2 on raw arrays: ``q * scale + x_min``, computed in the wider
+    of ``dtype`` and the range's dtype and returned as ``dtype``."""
+    x_min = torch.as_tensor(x_min, device=q.device)
+    x_max = torch.as_tensor(x_max, device=q.device)
+    scale = (x_max - x_min) / (2**bits - 1)
+    wide = torch.promote_types(dtype, scale.dtype)
+    return (q.to(dtype).to(wide) * scale + x_min).to(dtype)
+
+
+def dequantize(qf: QuantizedFeatures,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Eq. 2: ``q * scale + x_min`` as ``dtype`` (f32 by default)."""
+    return dequantize_arrays(qf.q, qf.x_min, qf.x_max, qf.bits, dtype)
+
+
+def quantization_error(x, bits: int = 8) -> torch.Tensor:
+    """Max abs reconstruction error of Eq. 1 then Eq. 2; bounded by one
+    quantization step."""
+    x = torch.as_tensor(x, dtype=torch.float32)
+    return (dequantize(quantize(x, bits)) - x).abs().max()
+
+
+def loading_bytes(num_nodes: int, feat: int, bits: Optional[int]) -> int:
+    """Bytes moved when loading the feature matrix (the paper's Table 3);
+    ``bits=None`` means raw float32."""
+    if bits is None:
+        return num_nodes * feat * 4
+    return num_nodes * feat * storage_dtype(bits).itemsize
+
+
+def gather_bytes(live_edges: int, feat: int, bits: Optional[int]) -> int:
+    """Bytes the SpMM's B-row gather moves: one ``feat``-wide feature row
+    per live ELL slot."""
+    itemsize = 4 if bits is None else storage_dtype(bits).itemsize
+    return live_edges * feat * itemsize
 
 
 #: Fraction of the stored quantization span by which the operand's value

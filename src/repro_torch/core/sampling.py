@@ -182,7 +182,8 @@ def sample_block_segment(csr, row_nnz_host, b: int, strat: str, width: int,
 
     Args:
       csr: the source matrix.
-      row_nnz_host: numpy per-row nnz (hoisted by the caller).
+      row_nnz_host: numpy per-row nnz (hoisted by the caller), or None:
+        a ``"full"`` block then reads its own ``row_ptr`` slice.
       b: block index.
       strat: key of :data:`STRATEGIES` or ``"full"`` (pads to the block's
         own max row nnz; ``width`` is then ignored).
@@ -197,8 +198,12 @@ def sample_block_segment(csr, row_nnz_host, b: int, strat: str, width: int,
     num_rows = csr.num_rows
     r0 = b * block_rows
     r1 = min(r0 + block_rows, num_rows)
-    blk_nnz = row_nnz_host[r0:r1]
     if strat == "full":
+        if row_nnz_host is None:
+            rp = csr.row_ptr[r0:r1 + 1]
+            blk_nnz = (rp[1:] - rp[:-1]).cpu().numpy()
+        else:
+            blk_nnz = row_nnz_host[r0:r1]
         width = int(blk_nnz.max()) if len(blk_nnz) else 0
         fn = sample_csr_to_ell_sfs           # first-W == all when W >= max nnz
     else:

@@ -30,9 +30,16 @@ degree-sorted, or auto.
 Calibration (**calibration.py**): with ``$REPRO_PLAN_CACHE_DIR`` set,
 every measurement appends a (roofline terms, predicted, measured) record;
 once enough exist for the host, the fitted ``MachineModel`` ranks, and a
-well-correlated one shrinks the measurement budget.  Incremental
-maintenance (``apply_edge_updates``) and the command lines come with later
-slices of the port.
+well-correlated one shrinks the measurement budget.
+
+Incremental maintenance (**incremental.py**): ``apply_edge_updates(plan,
+csr, additions, deletions)`` patches a cached ``BlockedPlan`` for an edge
+delta on the CSR's device — the merge, the re-digest of touched digest
+blocks, the re-ranking and re-sampling of touched plan blocks, the
+re-quantization of changed feature rows — and lands bit for bit on the
+plan a cold ``tune_blocked`` of the patched graph computes (``DeltaReport``
+says what it touched).  The command lines come with the serving slice of
+the port.
 """
 from repro_torch.tuning.cost_model import (CandidateConfig, CostEstimate,
                                            MachineModel, RooflineTerms,
@@ -53,14 +60,16 @@ from repro_torch.tuning.calibration import (CalibrationLog,
                                             calibrated_machine_model,
                                             fit_machine_model,
                                             host_fingerprint, spearman)
+from repro_torch.tuning.incremental import DeltaReport, apply_edge_updates
 
 __all__ = [
     "BlockedPlan", "CalibrationLog", "CandidateConfig", "CostEstimate",
-    "GraphFeatures", "MachineModel", "PLAN_SCHEMA_VERSION", "PlanCache",
-    "RooflineTerms", "TunedPlan", "calibrated_machine_model",
-    "default_cache", "default_grid", "extract_block_features",
-    "extract_features", "features_fingerprint", "features_from_row_nnz",
-    "fingerprint", "fit_machine_model", "host_fingerprint",
-    "normalize_shard_meta", "predict", "rank", "reset_default_cache",
-    "roofline_terms", "spearman", "tune", "tune_blocked",
+    "DeltaReport", "GraphFeatures", "MachineModel", "PLAN_SCHEMA_VERSION",
+    "PlanCache", "RooflineTerms", "TunedPlan", "apply_edge_updates",
+    "calibrated_machine_model", "default_cache", "default_grid",
+    "extract_block_features", "extract_features", "features_fingerprint",
+    "features_from_row_nnz", "fingerprint", "fit_machine_model",
+    "host_fingerprint", "normalize_shard_meta", "predict", "rank",
+    "reset_default_cache", "roofline_terms", "spearman", "tune",
+    "tune_blocked",
 ]

@@ -60,6 +60,18 @@ def _synthetic_features(csr: CSR, seed: int) -> torch.Tensor:
         rng.normal(size=(csr.num_rows, 64)), np.float32)).to(csr.device)
 
 
+def block_grid(backend, quant_bits, strategies, widths,
+               include_full) -> list[CandidateConfig]:
+    """The per-block candidate grid: ``strategies x widths`` (+ ``full``).
+    ``tune_blocked`` and the patch path (``tuning.incremental``) both rank
+    over it, so a patched block's analytic winner is the cold tune's."""
+    candidates = [CandidateConfig(s, w, backend, quant_bits)
+                  for s in strategies for w in widths]
+    if include_full:
+        candidates.append(CandidateConfig("full", 0, backend, quant_bits))
+    return candidates
+
+
 def _rank_blocks(csr, block_rows, feat_dim, strategies, widths,
                  include_full, backend, quant_bits, machine,
                  accuracy_weight, verbose=False, tag=""):
@@ -70,13 +82,10 @@ def _rank_blocks(csr, block_rows, feat_dim, strategies, widths,
     always lands on the same table."""
     block_feats = features_mod.extract_block_features(
         csr, block_rows, feat_dim=feat_dim)
+    candidates = block_grid(backend, quant_bits, strategies, widths,
+                            include_full)
     configs, predicted_us = [], 0.0
     for b, bf in enumerate(block_feats):
-        candidates = [CandidateConfig(s, w, backend, quant_bits)
-                      for s in strategies for w in widths]
-        if include_full:
-            candidates.append(
-                CandidateConfig("full", 0, backend, quant_bits))
         best = cost_model.rank(bf, candidates, machine, accuracy_weight)[0]
         configs.append((best.config.strategy, best.config.sh_width))
         predicted_us += best.latency_us

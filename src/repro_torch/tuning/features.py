@@ -161,17 +161,21 @@ def extract_block_features(csr: CSR, block_rows: int, feat_dim: int = 64,
     safe).  Fingerprints are left blank — blocked plans are keyed by the
     whole-graph fingerprint, not per block.
     """
-    row_ptr = _np(csr.row_ptr)
-    row_nnz = (row_ptr[1:] - row_ptr[:-1]).astype(np.int64)
-    num_rows = len(row_nnz)
+    num_rows = csr.num_rows
+    row_ptr = None
     if blocks is None:
         blocks = range(max(-(-num_rows // block_rows), 1))
-    return [
-        _stats_from_row_nnz(
-            row_nnz[int(b) * block_rows:(int(b) + 1) * block_rows],
-            csr.num_cols, feat_dim)
-        for b in blocks
-    ]
+        row_ptr = _np(csr.row_ptr).astype(np.int64)
+    out = []
+    for b in blocks:
+        r0 = min(int(b) * block_rows, num_rows)
+        r1 = min(r0 + block_rows, num_rows)
+        # the delta path (``blocks`` given) copies only its blocks' slices
+        rp = row_ptr[r0:r1 + 1] if row_ptr is not None \
+            else _np(csr.row_ptr[r0:r1 + 1]).astype(np.int64)
+        out.append(_stats_from_row_nnz(rp[1:] - rp[:-1], csr.num_cols,
+                                       feat_dim))
+    return out
 
 
 def features_from_row_nnz(row_nnz: Sequence[int], num_cols: int,

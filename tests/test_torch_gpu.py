@@ -381,3 +381,72 @@ def test_training_and_presampled_agg_on_the_card(cuda):
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         assert (counts["aes_sample"], counts["ell_spmm"]) == (1, 2), counts
+
+
+def test_incremental_patch_on_the_card_equals_the_cpu(cuda):
+    """``apply_csr_deltas`` and ``apply_edge_updates`` on ``cuda`` tensors
+    against the same calls on CPU tensors, bit for bit (the merged CSR,
+    its touched rows, the patched plan's fingerprint, tables and operand
+    bytes, natural and degree-sorted, f32 and int8); the patched plan's
+    ``cuda`` output against its ``torch`` twin (f32 0.0 apart: the blocked
+    kernel rounds as its plain version does; int8 to 1e-4)."""
+    import dataclasses
+
+    from repro_torch.core import apply_csr_deltas
+    from repro_torch.tuning import (MachineModel, PlanCache,
+                                    apply_edge_updates, tune_blocked)
+
+    rng = np.random.default_rng(21)
+    g = _graph(5, 3000, 12.0, 0.8, "cpu", hub=1500)
+    x = torch.from_numpy(rng.normal(size=(3000, 16)).astype(np.float32))
+    rows = np.repeat(np.arange(3000), np.diff(g.row_ptr.numpy()))
+    pick = rng.choice(g.nnz, 60, replace=False)
+    keys = np.unique(rows[pick] * 3000 + g.col_ind.numpy()[pick])
+    dels = [(int(k // 3000), int(k % 3000)) for k in keys]
+    present = set((rows * 3000 + g.col_ind.numpy()).tolist())
+    adds = []
+    while len(adds) < 60:
+        k = int(rng.integers(0, 3000)) * 3000 + int(rng.integers(0, 3000))
+        if k not in present:
+            present.add(k)
+            adds.append((k // 3000, k % 3000, float(rng.normal())))
+    want, wt = apply_csr_deltas(g, adds, dels)
+    got, gt = apply_csr_deltas(g.to(cuda), adds, dels)
+    assert got.device.type == "cuda" and gt.tolist() == wt.tolist()
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a.cpu(), b)
+    tk = dict(block_rows=256, measure_plan=False, measure_buckets=False,
+              machine=MachineModel())
+    requant = [r for r in range(40, 3000, 97)
+               if r not in (int(x.max(1).values.argmax()),
+                            int(x.min(1).values.argmin()))]
+    x2 = x.clone()
+    x2[requant] *= 0.5
+    for kw in ({}, {"quant": 8}, {"layout": "degree_sorted"}):
+        plans = []
+        for dev in ("cpu", cuda):
+            gd, xd = g.to(dev), x.to(dev)
+            plan = tune_blocked(gd, xd, cache=PlanCache(), backend="torch",
+                                **tk, **kw)
+            plans.append(apply_edge_updates(
+                plan, gd, adds, dels, features=x2.to(dev),
+                requant_rows=requant if "quant" in kw else (),
+                machine=tk["machine"])[0])
+        h, c = plans
+        assert (c.fingerprint, c.block_digests, c.bell.widths,
+                c.bell.strategies, c.buckets, c.version) == \
+            (h.fingerprint, h.block_digests, h.bell.widths,
+             h.bell.strategies, h.buckets, h.version), kw
+        for field in ("val", "col", "live_w"):
+            assert torch.equal(getattr(c.bell, field).cpu(),
+                               getattr(h.bell, field)), (kw, field)
+        if "quant" in kw:
+            assert torch.equal(c.quantized.q.cpu(), h.quantized.q)
+        ops.reset_launch_counts()
+        out = dataclasses.replace(c, backend="cuda").run(x2.to(cuda))
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["block_ell_spmm"] >= 1
+        twin = c.run(x2.to(cuda))
+        tol = 1e-4 if "quant" in kw else 0.0     # the u8 gather's tolerance
+        torch.testing.assert_close(out, twin, rtol=tol, atol=tol,
+                                   msg=lambda m: f"{kw}: {m}")

@@ -1,7 +1,8 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` load neither
-JAX nor any module of the JAX package (the optimizer, the configs and the
-example modules included), the port's entry points default to the card
-(and raise without one instead of running on the CPU: ``evaluate``,
+JAX nor any module of the JAX package (the optimizer, the configs, the
+example modules and incremental plan maintenance included), the port's
+entry points default to the card (and raise without one instead of
+running on the CPU: ``evaluate``,
 ``make_dataset``, ``train_model``, ``make_presampled_agg``), and the
 smoke script refuses to report a result without a card or without the
 repository around it."""
@@ -32,7 +33,8 @@ bad = sorted(m for m in sys.modules
 assert not bad, bad
 for name in ("repro_torch.optim.adamw", "repro_torch.configs.gnn_paper",
              "repro_torch.examples.quickstart",
-             "repro_torch.examples.gnn_inference", "repro_torch.gnn.train"):
+             "repro_torch.examples.gnn_inference", "repro_torch.gnn.train",
+             "repro_torch.tuning.incremental"):
     assert name in names, name
 print("MODULES", len(names))
 

@@ -86,3 +86,36 @@ def test_builders_default_to_the_card():
     else:
         with pytest.raises(RuntimeError, match="cuda"):
             tg.csr_from_edges([0], [0], 1)
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+def test_dequantize_arrays_error_and_byte_counts_match(bits):
+    """``dequantize_arrays`` (f32, and bf16 through the f32 range),
+    ``quantization_error``, ``loading_bytes`` and ``gather_bytes``."""
+    x = _features(bits, shape=(120, 21))
+    want_qf = jq.quantize(x, bits)
+    got_qf = tq.quantize(torch.from_numpy(x), bits)
+    ulp = float(np.spacing(np.abs(x).max()))
+    # f32: XLA's FMA against two roundings (1 ulp each); bf16: the f32
+    # results may round to neighbouring bf16 values (one bf16 ulp, 2^-7)
+    for dtype, jdtype, atol in (
+            (torch.float32, np.float32, 4 * ulp),
+            (torch.bfloat16, jq.jnp.bfloat16, np.abs(x).max() * 2.0**-7)):
+        got = tq.dequantize_arrays(got_qf.q, got_qf.x_min, got_qf.x_max,
+                                   bits, dtype)
+        want = np.asarray(jq.dequantize_arrays(
+            want_qf.q, want_qf.x_min, want_qf.x_max, bits, jdtype))
+        assert got.dtype == dtype
+        np.testing.assert_allclose(got.float().numpy(),
+                                   want.astype(np.float32), rtol=0,
+                                   atol=atol)
+    assert torch.equal(tq.dequantize(got_qf),
+                       tq.dequantize_arrays(got_qf.q, got_qf.x_min,
+                                            got_qf.x_max, bits))
+    err = float(tq.quantization_error(torch.from_numpy(x), bits))
+    assert err == pytest.approx(float(jq.quantization_error(x, bits)),
+                                abs=4 * ulp)
+    assert err <= float(got_qf.scale)
+    for b in (None, bits):
+        assert tq.loading_bytes(1000, 64, b) == jq.loading_bytes(1000, 64, b)
+        assert tq.gather_bytes(5321, 64, b) == jq.gather_bytes(5321, 64, b)
