@@ -83,6 +83,25 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    plan's (natural plans) and to its ``torch`` twin (int8 to 1e-4), and
    the merge on the card equal to the same call on the CPU; one
    ``incremental`` line a pair, speed ratios logged, not gated.
+   Then sharded serving, its launch counts set to 0 just before it and
+   read just after (less the launches that only compare or time): a
+   4-shard ``GNNServer`` over ``gcn_adj`` (loop mode, all shards on the
+   card, ``tune_blocked``'s defaults), f32 and int8, each on a fresh disk
+   ``PlanCache``, with ``aggregate`` on the resident and on a dense F = 64
+   operand held against the shard plans' ``torch`` twins (f32 0.0, u8
+   1e-4) and a two-operand micro-batch against the one-shot results
+   (0.0); the int8 server's init-time hashes timed; a warm restart (4
+   disk hits, 0 misses); ``sync_baseline``, ``run_batch``'s dispatch time
+   beside its completion (under ``set_sync_debug_mode("error")``), its
+   host time layer by layer (also with obs off and with the garbage
+   collector off), and whether ``Event.synchronize`` releases
+   the interpreter lock; ``run_open_loop`` on a ``ServingRuntime``
+   (``policy="reject"``) at 0.5x-4x the baseline's rps, 64 requests each,
+   half dense, every result equal to the synchronous one;
+   ``evaluate(strategy="auto", shards=4)`` for both trained models beside
+   the single-device tuned call and within 0.001 of the ``torch`` twins;
+   a ``window`` edge update held to the CPU merge's edges and to cold
+   tunes of the shards it touched; peak device memory.
    The kernel checks of the int8 layers and of phase 5 keep random
    parameters from a numpy seed: they hold kernels, not accuracy.
 5. Kernel times at the main path's shapes (CUDA events around batches of
@@ -113,6 +132,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -1082,6 +1102,444 @@ def incremental_path(P, ds) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4, last: sharded serving
+# ---------------------------------------------------------------------------
+
+#: row shards of the serving phase: all four share the one card
+SERVING_SHARDS = 4
+#: F of the dense requests (the GCN's hidden width on reddit)
+SERVING_DENSE_F = 64
+#: distinct dense operands the open-loop requests cycle through
+SERVING_POOL = 8
+#: open-loop requests per offered rate, half resident, half dense
+SERVING_REQUESTS = 64
+#: offered rates, as multiples of the synchronous baseline's
+SERVING_RATES = (0.5, 1.0, 2.0, 4.0)
+#: the runtime's batch size, deadline and queue bound at full size: a
+#: batch of 8 holds at most 4 dense operands (256 columns, ~240 MB a
+#: gathered shard operand), so the phase stays far inside 80 GB
+SERVING_MAX_BATCH, SERVING_MAX_DELAY_MS, SERVING_QUEUE_DEPTH = 8, 2.0, 32
+
+
+def _torch_twins_of(P, server, x):
+    """``server``'s shard plans run one by one on ``x`` (None: the resident
+    operands) through their ``torch`` twins (the blocked kernel's plain
+    computation), concatenated: what ``aggregate`` must equal."""
+    outs = []
+    for s, shard in enumerate(server.shards):
+        plan = server.plans[s] if x is None else server._float_plans[s]
+        op = server._resident[s] if x is None else shard.gather(x)
+        outs.append(_torch_twin(P, plan).run(op, assume_tuned=x is None))
+    return P.torch.cat(outs, dim=0)
+
+
+def _global_edges(P, shards) -> tuple:
+    """The (row, col, val) edges of CSR shards (or of one whole CSR), in
+    global ids, sorted: a key that ignores the order within a row."""
+    np = P.np
+    rows, cols, vals = [], [], []
+    for sh in shards:
+        csr = getattr(sh, "csr", sh)
+        r0 = getattr(sh, "row_start", 0)
+        index = getattr(sh, "gather_index", None)
+        rp = csr.row_ptr.cpu().numpy()
+        ci = csr.col_ind.cpu().numpy().astype(np.int64)
+        rows.append(r0 + np.repeat(np.arange(csr.num_rows), np.diff(rp)))
+        cols.append(ci if index is None else index[ci])
+        vals.append(csr.val.cpu().numpy())
+    rows, cols, vals = (np.concatenate(a) for a in (rows, cols, vals))
+    order = np.lexsort((vals, cols, rows))
+    return tuple(a[order].tobytes() for a in (rows, cols, vals))
+
+
+def _dispatch_vs_completion(P, server, batch, reps=5) -> dict:
+    """Host ms ``run_batch`` takes to return (under PyTorch's sync debug
+    mode "error": no operation in it may wait for the card) beside the ms
+    until a CUDA event recorded after it completes; medians of ``reps``."""
+    torch = P.torch
+    dispatch, complete = [], []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            server.run_batch(batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        t1 = time.perf_counter()
+        ev = torch.cuda.Event()
+        ev.record()
+        ev.synchronize()
+        t2 = time.perf_counter()
+        dispatch.append((t1 - t0) * 1e3)
+        complete.append((t2 - t0) * 1e3)
+    d, c = statistics.median(dispatch[1:]), statistics.median(complete[1:])
+    return {"dispatch_ms": d, "complete_ms": c, "ratio": d / c}
+
+
+def _host_split(P, server, rounds=3) -> dict:
+    """Host ms of one resident pass, layer by layer: the blocked kernel's
+    wrapper and the executor on shard 0's plan — as it runs, with obs off,
+    and with the interpreter's cyclic garbage collector off — and
+    ``run_batch`` (all shards); each the median of ``rounds`` readings
+    taken in turns, beside the objects the collector tracks."""
+    import gc
+
+    torch = P.torch
+    plan0, op0 = server.plans[0], server._resident[0]
+    executor = P.PlanExecutor()
+
+    def run_plan():
+        return executor.run_plan(plan0, op0, assume_tuned=True)
+
+    def run_plan_obs_off():
+        prev = P.obs.set_enabled(False)
+        try:
+            return run_plan()
+        finally:
+            P.obs.set_enabled(prev)
+
+    def run_plan_gc_off():
+        gc.disable()
+        try:
+            return run_plan()
+        finally:
+            gc.enable()
+
+    calls = {"block_ell_spmm_wrapper": lambda: P.ops.block_ell_spmm(
+                 plan0.bell, op0, buckets=plan0.buckets),
+             "run_plan": run_plan, "run_plan_obs_off": run_plan_obs_off,
+             "run_plan_gc_off": run_plan_gc_off,
+             "run_batch_all_shards": lambda: server.run_batch([None])}
+    readings = {k: [] for k in calls}
+    for _ in range(rounds):
+        for k, fn in calls.items():
+            readings[k].append(host_ms(torch, fn))
+    out = {k: statistics.median(v) for k, v in readings.items()}
+    out["gc_tracked_objects"] = len(gc.get_objects())
+    return out
+
+
+def _event_wait_releases_gil(P) -> dict:
+    """Whether ``torch.cuda.Event.synchronize`` lets other Python threads
+    run while it waits (the runtime's completer waits so while the batcher
+    assembles the next batch): a thread waits for ~0.3 s of matmuls while
+    this one counts loop iterations for 0.1 s, against the same count with
+    no waiter."""
+    torch = P.torch
+    a = torch.randn((8192, 8192), device="cuda")
+
+    def spin(seconds):
+        n, end = 0, time.perf_counter() + seconds
+        while time.perf_counter() < end:
+            n += 1
+        return n
+
+    base = spin(0.1)
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        for _ in range(20):
+            a = a @ a / 90.5           # ~sqrt(8192): entries stay ~N(0, 1)
+        ev = torch.cuda.Event()
+        ev.record(stream)
+    waiter = threading.Thread(target=ev.synchronize)
+    waiter.start()
+    time.sleep(0.005)
+    during = spin(0.1)
+    pending = not ev.query()
+    waiter.join(60)
+    return {"spin_iters_alone": base, "spin_iters_while_waiting": during,
+            "event_pending_after_spin": pending,
+            "released": pending and during > 0.5 * base}
+
+
+def _runtime_line(P, server, rate, pool, expected) -> dict:
+    """One open-loop run at ``rate``: every completed result held against
+    the synchronous result for its operand; returns the line's numbers."""
+    torch = P.torch
+    dispatch = []
+    run_batch = server.run_batch
+
+    def timed_run_batch(batch):
+        t0 = time.perf_counter()
+        out = run_batch(batch)
+        dispatch.append(time.perf_counter() - t0)
+        return out
+
+    server.run_batch = timed_run_batch
+    reqs = []
+    rt = P.ServingRuntime(server, max_batch=SERVING_MAX_BATCH,
+                          max_delay_ms=SERVING_MAX_DELAY_MS,
+                          queue_depth=SERVING_QUEUE_DEPTH, policy="reject")
+    submit = rt.submit
+
+    def kept_submit(x=None, timeout=None):
+        r = submit(x, timeout)
+        reqs.append((x, r))
+        return r
+
+    rt.submit = kept_submit
+    try:
+        res = P.run_open_loop(
+            rt, rate_rps=rate, num_requests=SERVING_REQUESTS, seed=0,
+            operand=lambda i: None if i % 2 == 0
+            else pool[(i // 2) % SERVING_POOL])
+        snap = rt.snapshot()
+    finally:
+        rt.close()
+        del server.run_batch
+    wrong = 0
+    for x, r in reqs:
+        if r.ok():
+            want = expected[None if x is None else id(x)]
+            wrong += not torch.equal(r.result(0), want)
+    lat = snap["latency"]
+    device_ms = [r.latency_us()["device"] / 1e3 for _, r in reqs if r.ok()]
+    return {
+        **{k: res[k] for k in ("offered_rps", "achieved_rps", "submitted",
+                               "completed", "failed", "rejected", "wall_s",
+                               "rows_per_s", "batches", "p50_ms", "p95_ms",
+                               "p99_ms", "max_ms")},
+        **{f"{stage}_p{p}_ms": lat[stage][f"p{p}_us"] / 1e3
+           for stage in ("queue", "device") for p in (50, 95, 99)},
+        "batch_triggers": {k: snap["counters"][f"batches_{k}"]
+                           for k in ("size", "deadline", "drain")},
+        "mean_batch_size": snap["mean_batch_size"],
+        "queue_peak": snap["counters"]["queue_peak"],
+        "dispatch_mean_ms": statistics.fmean(dispatch) * 1e3,
+        "device_stage_mean_ms": statistics.fmean(device_ms),
+        "dispatch_to_completion": statistics.fmean(dispatch) * 1e3
+        / statistics.fmean(device_ms),
+        "results_unequal_to_sync": wrong,
+    }
+
+
+def serving_path(P, ds, modules, full_acc) -> dict:
+    """Sharded serving on the card over reddit's ``gcn_adj``: a 4-shard
+    ``GNNServer`` (loop mode, ``tune_blocked``'s defaults; f32 and int8,
+    each on a fresh disk ``PlanCache``) held against its plans' ``torch``
+    twins, the warm restart, the synchronous baseline and the open-loop
+    runtime sweep, ``evaluate(strategy="auto", shards=4)`` for the trained
+    models, and an edge update.  Returns the launches of the run (counts
+    set to 0 at its start), less those made only to compare."""
+    import tempfile
+
+    torch = P.torch
+    adj, x = ds.gcn_adj, ds.features
+    n = adj.num_rows
+    gen = torch.Generator(device=adj.device).manual_seed(0)
+    dense = torch.randn((n, SERVING_DENSE_F), generator=gen,
+                        device=adj.device)
+    failures, compared = [], {}
+
+    def comparing(fn):
+        """``fn()``, its launches left out of the path's: they compare or
+        time, they do not serve."""
+        before = P.ops.launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        for k, v in P.ops.launch_counts().items():
+            compared[k] = compared.get(k, 0) + v - before[k]
+        return out
+
+    def check(ok, what):
+        if not ok:
+            failures.append(what)
+
+    tmp = tempfile.TemporaryDirectory()
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    P.ops.reset_launch_counts()                   # the path starts here
+    servers, tune_s = {}, {}
+    for name, quant in (("f32", None), ("int8", 8)):
+        cache_dir = str(Path(tmp.name) / name)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        server = P.GNNServer(adj, x, num_shards=SERVING_SHARDS, quant=quant,
+                             cache=P.PlanCache(cache_dir))
+        torch.cuda.synchronize()
+        tune_s[name] = time.perf_counter() - t0
+        servers[name] = server
+        tol = 1e-4 if quant else 0.0      # the u8 gather's tolerance
+        errs = {}
+        for label, op in (("resident", None), ("dense_f64", dense)):
+            got = server.aggregate(op)
+            want = comparing(lambda: _torch_twins_of(P, server, op))
+            errs[label] = float((got - want).abs().max())
+            check(got.shape == (n, x.shape[1] if op is None
+                                else SERVING_DENSE_F)
+                  and bool(torch.isfinite(got).all())
+                  and errs[label] <= tol, f"parity {name} {label}")
+        # a micro-batch of two float operands equals the one-shot results
+        t_a, t_b = server.submit(dense), server.submit(dense * 2.0)
+        batch = server.flush()
+        micro_err = max(
+            float((batch[t_a] - server.aggregate(dense)).abs().max()),
+            float((batch[t_b] - server.aggregate(dense * 2.0)).abs().max()))
+        check(micro_err == 0.0, f"micro-batch {name}")
+        plans = server.plan_summary()
+        log({"phase": "serving_parity", "plans": name,
+             "tune_s": tune_s[name],
+             "halo": server.halo_stats(),
+             "plan_summary": [
+                 {"shard": p["shard"], "rows": p["rows"], "halo": p["halo"],
+                  "blocks": p["blocks"], "buckets": p["buckets"],
+                  "widths": {str(w): p["widths"].count(w)
+                             for w in sorted(set(p["widths"]))},
+                  "quant_bits": p["quant_bits"]} for p in plans],
+             "resident_on_uint8": [r is None for r in server._resident],
+             "vs_torch_twin_max_abs_err": errs,
+             "micro_batch_vs_one_shot_max_abs_err": micro_err,
+             "tolerance": tol})
+    # the init-time verification of the int8 server, timed alone: one host
+    # hash of each shard's gathered features (as at init and after an edge
+    # update), beside the digest and hash costs of the tuned path
+    q_server = servers["int8"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q_server._prepare_execution()
+    prepare_s = time.perf_counter() - t0
+    hash_s = []
+    for shard in q_server.shards:
+        g = shard.gather(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        P.features_fingerprint(g)
+        hash_s.append(time.perf_counter() - t0)
+    log({"phase": "serving_host_costs", "prepare_execution_s": prepare_s,
+         "shard_hash_s": hash_s,
+         "shard_bytes": [s.gather_index.size * x.shape[1] * 4
+                         for s in q_server.shards]})
+
+    # warm restart: a fresh cache on the f32 directory re-tunes nothing
+    warm = P.PlanCache(str(Path(tmp.name) / "f32"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restarted = P.GNNServer(adj, x, num_shards=SERVING_SHARDS, cache=warm)
+    torch.cuda.synchronize()
+    restart_s = time.perf_counter() - t0
+    same = torch.equal(restarted.aggregate(), servers["f32"].aggregate())
+    log({"phase": "serving_warm_restart", "restart_s": restart_s,
+         "first_tune_s": tune_s["f32"], "disk_hits": warm.stats.disk_hits,
+         "misses": warm.stats.misses, "output_equal": same})
+    check(warm.stats.disk_hits == SERVING_SHARDS and warm.stats.misses == 0
+          and same, "warm restart")
+    del restarted
+
+    # the synchronous baseline, then the open loop at multiples of its rate
+    server = servers["f32"]
+    base = P.sync_baseline(server, iters=16, warmup=2)
+    # a batch whose device work outweighs its dispatch shows whether
+    # run_batch waits for the card: 8 dense operands, 512 columns
+    split = comparing(lambda: {
+        "resident": _dispatch_vs_completion(P, server, [None]),
+        "dense_x2": _dispatch_vs_completion(P, server, [dense] * 2),
+        "dense_x8": _dispatch_vs_completion(P, server, [dense] * 8)})
+    host = comparing(lambda: _host_split(P, server))
+    log({"phase": "serving_sync_baseline", **base,
+         "dispatch_vs_completion": split, "host_ms_per_call": host,
+         "event_wait": _event_wait_releases_gil(P)})
+    pool = [torch.randn((n, SERVING_DENSE_F), generator=gen,
+                        device=adj.device) for _ in range(SERVING_POOL)]
+    expected = {None: server.aggregate()}
+    expected.update({id(op): server.aggregate(op) for op in pool})
+    for rx in SERVING_RATES:
+        line = _runtime_line(P, server, base["rps"] * rx, pool, expected)
+        log({"phase": "serving_runtime", "rate_x_baseline": rx,
+             "max_batch": SERVING_MAX_BATCH,
+             "max_delay_ms": SERVING_MAX_DELAY_MS,
+             "queue_depth": SERVING_QUEUE_DEPTH, **line})
+        check(line["results_unequal_to_sync"] == 0
+              and line["completed"] >= 1 and line["failed"] == 0,
+              f"runtime at {rx}x")
+    del pool, expected
+
+    # evaluate(shards=4) with the trained models, beside the single-device
+    # tuned path and the same sharded call on the plans' torch twins
+    for model in ("gcn", "graphsage"):
+        params = modules[model]
+        walls, accs = {}, {}
+        for key, kw in (("sharded", dict(shards=SERVING_SHARDS)),
+                        ("single_device", {}),
+                        ("sharded_torch_twin",
+                         dict(shards=SERVING_SHARDS,
+                              tune_kwargs={"backend": "torch"}))):
+            call = functools.partial(P.evaluate, ds, model, params,
+                                     strategy="auto", plan_cache=P.PlanCache(),
+                                     **kw)
+            t0 = time.perf_counter()
+            accs[key] = call() if key == "sharded" else comparing(call)
+            walls[key] = time.perf_counter() - t0
+        log({"phase": "serving_sharded_evaluate", "model": model,
+             "shards": SERVING_SHARDS, "accuracy": accs["sharded"],
+             "accuracy_lost_vs_full": full_acc[model] - accs["sharded"],
+             "single_device_accuracy": accs["single_device"],
+             "torch_twin_accuracy": accs["sharded_torch_twin"],
+             "cold_wall_s": walls})
+        check(abs(accs["sharded"] - accs["sharded_torch_twin"]) <= 1e-3
+              and 0.0 <= accs["sharded"] <= 1.0, f"sharded evaluate {model}")
+
+    # an edge update on the f32 server.  A touched row's edges are re-sorted
+    # by their shard-local column ids (as in the reference package), which
+    # put the shard's own rows before its halo, so its edge order, and what
+    # AES keeps of it, can differ from a fresh partition of the patched
+    # graph.  So the server is held to (1) the CPU merge's edges and (2) a
+    # cold tune of each patched shard, output for output.
+    block_rows = inspect.signature(P.tune_blocked).parameters[
+        "block_rows"].default
+    adds, dels = make_deltas(P, adj, block_rows)["window"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = server.apply_edge_updates(adds, dels)
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    got = server.aggregate()
+    merged, _ = P.apply_csr_deltas(adj.to("cpu"), adds, dels)
+    edges_ok = _global_edges(P, server.shards) == _global_edges(P, [merged])
+    touched = report["patched"] + report["retuned"]
+
+    def cold_outputs():
+        outs = []
+        for i, shard in enumerate(server.shards):
+            op = shard.gather(x)
+            plan = server.plans[i]
+            if i in touched:
+                cold = P.tune_blocked(shard.csr, op, cache=P.PlanCache(),
+                                      shard_meta=plan.shard_meta)
+                if cold.fingerprint != plan.fingerprint:
+                    return None
+                plan = cold
+            outs.append(plan.run(op))
+        return torch.cat(outs, dim=0)
+
+    want = comparing(cold_outputs)
+    update_err = None if want is None else float((got - want).abs().max())
+    log({"phase": "serving_edge_update", "additions": len(adds),
+         "deletions": len(dels),
+         **{k: report[k] for k in ("patched", "retuned", "untouched",
+                                   "halo_shrunk")},
+         "apply_edge_updates_s": update_s,
+         "edges_equal_cpu_merge": edges_ok,
+         "vs_cold_shard_plans_max_abs_err": update_err})
+    check(edges_ok and update_err == 0.0 and bool(touched), "edge update")
+    launches = {k: v - compared.get(k, 0)         # ... and ends here
+                for k, v in P.ops.launch_counts().items()}
+    log({"phase": "serving_launches", "launches": launches,
+         "comparison_and_timing_launches": compared,
+         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "wall_s": time.perf_counter() - t_phase})
+    del servers, server
+    tmp.cleanup()
+    if failures:
+        raise AssertionError(f"serving: {failures} failed (the serving "
+                             "lines above say which check)")
+    if launches["block_ell_spmm"] <= 0:
+        raise AssertionError("kernel block_ell_spmm was not launched on "
+                             "the serving path")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 5: timing helpers
 # ---------------------------------------------------------------------------
 
@@ -1600,6 +2058,8 @@ def port():
     from repro_torch.kernels import ell_spmm as ell_mod
     from repro_torch.kernels import fused_layer as layer_mod
     from repro_torch.kernels import fused_spmm as fused_mod
+    from repro_torch.serving import (GNNServer, ServingRuntime,
+                                     run_open_loop, sync_baseline)
     from repro_torch.tuning import (PlanCache, apply_edge_updates,
                                     features_fingerprint, fingerprint,
                                     tune_blocked)
@@ -1682,7 +2142,8 @@ def main() -> None:
     if incremental["block_ell_spmm"] <= 0:
         raise AssertionError("kernel block_ell_spmm was not launched on "
                              "the incremental path")
-    launches = {k: n + presampled[k] + tuned[k] + incremental[k]
+    serving = serving_path(P, ds, modules, full_acc)
+    launches = {k: n + presampled[k] + tuned[k] + incremental[k] + serving[k]
                 for k, n in launches.items()}
 
     errs["fused_layer_int8"] = []

@@ -4,7 +4,8 @@
   2. inference with AES-SpMM / ES-SpMM (AFS, SFS) across W,
   3. INT8-quantized features on top of AES,
   4. strategy="auto": repro_torch.tuning picks the config per graph and
-     serves later aggregations from the cached sampled plan.
+     serves later aggregations from the cached sampled plan,
+  5. the same through the sharded serving engine (evaluate(shards=2)).
 
     PYTHONPATH=src python -m repro_torch.examples.gnn_inference [dataset] [scale] [--device cuda|cpu]
 
@@ -55,8 +56,14 @@ def main(argv=None) -> None:
         print(f"{'auto':>10} {auto_acc:.4f}  "
               f"(tuned: {plan.config.key()}, cache "
               f"{cache.stats.hits} hits / {cache.stats.misses} miss)")
-        # the reference's sharded-serving row (evaluate(shards=2)) comes
-        # with the serving slice: the port raises on shards= until then
+        # sharded serving parity path (repro_torch.serving): per-shard
+        # tuned plans
+        shard_cache = PlanCache()
+        sharded_acc = evaluate(ds, model, params, strategy="auto", shards=2,
+                               plan_cache=shard_cache, device=device)
+        print(f"{'auto/2sh':>10} {sharded_acc:.4f}  "
+              f"(per-shard plans, cache {shard_cache.stats.hits} hits / "
+              f"{shard_cache.stats.misses} miss)")
         print()
 
 

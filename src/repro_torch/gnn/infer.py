@@ -8,7 +8,6 @@ import torch
 
 from repro_torch import obs
 from repro_torch._device import resolve_device
-from repro_torch.core.aes_spmm import not_ported
 from repro_torch.core.quantization import dequantize, quantize
 from repro_torch.gnn.datasets import GraphDataset
 from repro_torch.gnn.models import MODELS, exact_agg, make_sampled_agg
@@ -21,6 +20,7 @@ def infer_logits(ds: GraphDataset, model: str, params, *,
                  quantize_bits: Optional[int] = None,
                  granularity: str = "graph",
                  fuse_layers: bool = False,
+                 shards: Optional[int] = None,
                  plan_cache=None, tune_kwargs=None,
                  device=None) -> torch.Tensor:
     """The logits :func:`evaluate` scores, f32[nodes, classes], computed on
@@ -33,10 +33,18 @@ def infer_logits(ds: GraphDataset, model: str, params, *,
     ``"torch"`` and ``"cuda_fused"`` aggregate the Eq. 2 reconstruction.
     ``strategy="auto"`` aggregates through tuned plans (see
     :func:`evaluate`).  ``fuse_layers=True`` (GCN) runs each layer as one
-    fused step (see :func:`_fused_gcn_logits`).
+    fused step (see :func:`_fused_gcn_logits`).  ``shards=N`` aggregates
+    through a sharded ``GNNServer`` (see :func:`_sharded_logits`).
     """
     if fuse_layers:
+        if shards is not None:
+            raise ValueError("fuse_layers is a single-device path "
+                             "(incompatible with shards=)")
         _check_fused(model, strategy, backend, granularity)
+    elif shards is not None:
+        if strategy != "auto":
+            raise ValueError("shards= requires strategy='auto' (per-shard "
+                             "configs are the tuner's to pick)")
     elif granularity not in ("graph", "block"):
         raise ValueError(f"unknown granularity {granularity!r} "
                          "(expected 'graph' or 'block')")
@@ -51,6 +59,11 @@ def infer_logits(ds: GraphDataset, model: str, params, *,
     feats = ds.features
 
     with torch.inference_mode():
+        if shards is not None:
+            return _sharded_logits(adj, adj_name, feats, params, shards,
+                                   quantize_bits=quantize_bits,
+                                   plan_cache=plan_cache,
+                                   tune_kwargs=tune_kwargs, device=device)
         if fuse_layers:
             return _fused_gcn_logits(adj, feats, params, sh_width=sh_width,
                                      strategy=strategy, backend=backend,
@@ -81,6 +94,35 @@ def infer_logits(ds: GraphDataset, model: str, params, *,
             agg = make_sampled_agg(sh_width, strategy, backend,
                                    quantized if backend == "cuda" else None)
         return params(adj, feats, agg)
+
+
+def _sharded_logits(adj, adj_name: str, feats, params, shards: int, *,
+                    quantize_bits: Optional[int], plan_cache, tune_kwargs,
+                    device):
+    """Forward pass for ``shards=N``: every aggregation through a
+    ``repro_torch.serving.GNNServer`` over an N-way row partition of
+    ``adj`` on ``device`` (per-shard tuned plans, ``block_ell_spmm`` on the
+    card).  ``quantize_bits`` pre-quantizes each shard's operand; the
+    hidden layer takes the per-shard float path."""
+    from repro_torch.serving import GNNServer
+
+    server = GNNServer(adj, feats, num_shards=shards, quant=quantize_bits,
+                       cache=plan_cache, tune_kwargs=tune_kwargs,
+                       devices=[device])
+    try:
+        def agg(csr, h):
+            if csr is not adj:
+                raise ValueError(
+                    "sharded evaluate: the server is partitioned over "
+                    f"{adj_name}; a model aggregating another adjacency "
+                    "needs its own GNNServer")
+            # the server dedupes operands equal to its feature matrix onto
+            # the cached (possibly quantized) fast path
+            return server.aggregate(h)
+
+        return params(adj, feats, agg)
+    finally:
+        server.close()
 
 
 def _check_fused(model: str, strategy: str, backend: str,
@@ -178,16 +220,18 @@ def evaluate(ds: GraphDataset, model: str, params, *, sh_width: int = 128,
         hidden-layer activations re-quantize within the stored range or
         take the float path on range drift.
 
-    ``shards=`` comes with the serving slice and raises
-    ``NotImplementedError``; with ``fuse_layers=True``, ``shards=``,
-    ``granularity="block"``, GraphSAGE and ``"cuda_fused"`` raise
-    ``ValueError``, as in the reference.
+      shards: ``strategy="auto"`` only: every aggregation goes through
+        a sharded ``repro_torch.serving.GNNServer`` over an N-way row
+        partition of the adjacency — per-shard tuned plans served by the
+        blocked kernel on the card, the same accuracy semantics.
+        ``quantize_bits`` then pre-quantizes each shard's operand, and the
+        hidden layer takes the per-shard float path.
+
+    ``shards=`` with a strategy other than ``"auto"`` raises
+    ``ValueError``, and so do, with ``fuse_layers=True``, ``shards=``,
+    ``granularity="block"``, GraphSAGE and ``"cuda_fused"``, as in the
+    reference.
     """
-    if shards is not None:
-        if fuse_layers:
-            raise ValueError("fuse_layers is a single-device path "
-                             "(incompatible with shards=)")
-        raise not_ported("shards=", "serving")
     with obs.trace("gnn.evaluate", model=model, strategy=strategy,
                    backend=backend, granularity=granularity,
                    shards=shards or 0, fuse_layers=fuse_layers,
@@ -196,7 +240,8 @@ def evaluate(ds: GraphDataset, model: str, params, *, sh_width: int = 128,
                               strategy=strategy, backend=backend,
                               quantize_bits=quantize_bits,
                               granularity=granularity,
-                              fuse_layers=fuse_layers, plan_cache=plan_cache,
+                              fuse_layers=fuse_layers, shards=shards,
+                              plan_cache=plan_cache,
                               tune_kwargs=tune_kwargs, device=device)
         acc = accuracy(logits, ds.labels.to(logits.device),
                        ds.test_mask.to(logits.device))

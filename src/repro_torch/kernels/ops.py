@@ -87,6 +87,21 @@ def block_ell_spmm(bell: BlockELL, b, *, quantized_meta=None, buckets=None):
         quantized_meta=quantized_meta)
 
 
+def prepare_block_ell(bell: BlockELL, buckets=None) -> None:
+    """Copy the blocked kernel's launch table for ``bell`` and ``buckets``
+    (as :func:`block_ell_spmm` takes them) to the card now.  The first
+    launch on an operand otherwise copies it from the host, which waits
+    for the card; a serving loop warms its plans here so that its dispatch
+    never waits.  A no-op for a BlockELL on the CPU."""
+    if bell.val.device.type != "cuda":
+        return
+    if buckets is None:
+        buckets = partition_width_buckets(bell.widths)
+    _block_mod._device_table(
+        bell.val, tuple(int(w) for w in bell.widths), bell.block_rows,
+        tuple(tuple(int(i) for i in ids) for _, ids in buckets))
+
+
 def aes_sample(csr: CSR, sh_width: int) -> ELL:
     """AES sampling pre-pass: CSR -> ELL(width=sh_width), dead slots
     zeroed, carrying its live widths (written by the kernel on the card)."""

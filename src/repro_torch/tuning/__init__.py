@@ -38,7 +38,7 @@ delta on the CSR's device — the merge, the re-digest of touched digest
 blocks, the re-ranking and re-sampling of touched plan blocks, the
 re-quantization of changed feature rows — and lands bit for bit on the
 plan a cold ``tune_blocked`` of the patched graph computes (``DeltaReport``
-says what it touched).  The command lines come with the serving slice of
+says what it touched).  The command lines come with a later slice of
 the port.
 """
 from repro_torch.tuning.cost_model import (CandidateConfig, CostEstimate,

@@ -91,8 +91,12 @@ def test_inference_accuracy_grid_matches_jax(trained):
 def test_unported_options_raise(trained):
     _, tds, params = trained
     m = params["gcn"][1]
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        evaluate(tds, "gcn", m, shards=2, device=CPU, strategy="auto")
+    # shards= is ported (parity in tests/test_torch_serving.py); the SPMD
+    # serving mode comes with the multi-card slice
+    from repro_torch.serving import GNNServer
+
+    with pytest.raises(NotImplementedError, match="multi-card"):
+        GNNServer(tds.gcn_adj, tds.features, mode="spmd", devices=[CPU])
     # the tuned path is ported (parity in tests/test_torch_tuning.py);
     # granularity="block" still needs strategy="auto", as in the reference
     with pytest.raises(ValueError, match='requires strategy="auto"'):

@@ -450,3 +450,44 @@ def test_incremental_patch_on_the_card_equals_the_cpu(cuda):
         tol = 1e-4 if "quant" in kw else 0.0     # the u8 gather's tolerance
         torch.testing.assert_close(out, twin, rtol=tol, atol=tol,
                                    msg=lambda m: f"{kw}: {m}")
+
+
+def test_sharded_serving_on_the_card_equals_the_cpu(cuda):
+    """A 4-shard ``GNNServer`` on ``cuda`` (f32 and u8 plans) against the
+    same server on the CPU: the same plans, ``aggregate`` on the resident
+    and on a dense operand to 1e-5 (u8 to 1e-4) through ``block_ell_spmm``;
+    then a ``ServingRuntime`` burst on the card whose results equal the
+    synchronous ``flush()``'s bit for bit."""
+    from repro_torch.serving import GNNServer, ServingRuntime
+    from repro_torch.tuning import MachineModel, PlanCache
+
+    rng = np.random.default_rng(23)
+    g = _graph(7, 4000, 10.0, 0.8, "cpu", hub=1200)
+    x = torch.from_numpy(rng.normal(size=(4000, 32)).astype(np.float32))
+    h = torch.from_numpy(rng.normal(size=(4000, 8)).astype(np.float32))
+    tk = dict(block_rows=256, measure_plan=False, measure_buckets=False,
+              machine=MachineModel())
+    for quant in (None, 8):
+        servers = [GNNServer(g, x, num_shards=4, quant=quant,
+                             cache=PlanCache(), tune_kwargs=tk,
+                             devices=[dev]) for dev in ("cpu", cuda)]
+        host, card = servers
+        assert card.plan_summary() == host.plan_summary()
+        assert all(p.backend == "cuda" for p in card.plans)
+        tol = 1e-4 if quant else 1e-5
+        for op in (None, h):
+            ops.reset_launch_counts()
+            got = card.aggregate(None if op is None else op.to(cuda))
+            torch.cuda.synchronize()
+            assert ops.launch_counts()["block_ell_spmm"] >= 4
+            want = host.aggregate(op)
+            torch.testing.assert_close(got.cpu(), want, rtol=tol, atol=tol,
+                                       msg=lambda m: f"quant={quant}: {m}")
+    t0, t1 = card.submit(), card.submit(h.to(cuda))
+    sync = card.flush()
+    with ServingRuntime(card, max_batch=4, max_delay_ms=5.0) as rt:
+        reqs = [rt.submit(None if i % 2 == 0 else h.to(cuda))
+                for i in range(10)]
+        for i, r in enumerate(reqs):
+            assert torch.equal(r.result(60), sync[t0 if i % 2 == 0 else t1])
+        assert rt.snapshot()["counters"]["completed"] == 10

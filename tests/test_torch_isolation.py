@@ -1,9 +1,11 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` load neither
 JAX nor any module of the JAX package (the optimizer, the configs, the
-example modules and incremental plan maintenance included), the port's
+example modules, incremental plan maintenance, serving and the whole of
+``obs`` included), the port's
 entry points default to the card (and raise without one instead of
 running on the CPU: ``evaluate``,
-``make_dataset``, ``train_model``, ``make_presampled_agg``), and the
+``make_dataset``, ``train_model``, ``make_presampled_agg``,
+``GNNServer``), and the
 smoke script refuses to report a result without a card or without the
 repository around it."""
 from __future__ import annotations
@@ -34,7 +36,12 @@ assert not bad, bad
 for name in ("repro_torch.optim.adamw", "repro_torch.configs.gnn_paper",
              "repro_torch.examples.quickstart",
              "repro_torch.examples.gnn_inference", "repro_torch.gnn.train",
-             "repro_torch.tuning.incremental"):
+             "repro_torch.tuning.incremental", "repro_torch.serving.engine",
+             "repro_torch.serving.partition", "repro_torch.serving.plans",
+             "repro_torch.serving.runtime", "repro_torch.serving.server",
+             "repro_torch.serving.telemetry", "repro_torch.serving.traffic",
+             "repro_torch.distributed.serving", "repro_torch.obs.export",
+             "repro_torch.obs.__main__"):
     assert name in names, name
 print("MODULES", len(names))
 
@@ -56,10 +63,12 @@ else:
         make_dataset("cora", scale=0.01)
     except RuntimeError:
         print("DATASET_RAISED_WITHOUT_CARD")
+    from repro_torch.serving import GNNServer
     for name, call in (
             ("TRAIN", lambda: train_model(ds, "gcn", hidden=8, epochs=1)),
             ("PRESAMPLED", lambda: make_presampled_agg(ds.gcn_adj, 8,
-                                                       backend="cuda"))):
+                                                       backend="cuda")),
+            ("SERVER", lambda: GNNServer(ds.gcn_adj, ds.features))):
         try:
             call()
         except RuntimeError as exc:
@@ -81,7 +90,7 @@ def test_port_loads_no_jax_and_defaults_to_the_card():
     n_modules = int(out.stdout.split("MODULES")[1].split()[0])
     assert n_modules >= 15
     if "EVALUATED_ON_CUDA" not in out.stdout:
-        for what in ("", "DATASET_", "TRAIN_", "PRESAMPLED_"):
+        for what in ("", "DATASET_", "TRAIN_", "PRESAMPLED_", "SERVER_"):
             assert what + "RAISED_WITHOUT_CARD" in out.stdout, what
 
 
