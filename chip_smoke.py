@@ -102,6 +102,27 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    the single-device tuned call and within 0.001 of the ``torch`` twins;
    a ``window`` edge update held to the CPU merge's edges and to cold
    tunes of the shards it touched; peak device memory.
+   Then LM serving, its launch counts set to 0 just before it and read
+   just after (it launches none of the six kernels): Qwen2-7B
+   (``get_config("qwen2-7b")`` unreduced, bfloat16, weights drawn on the
+   card from seed 0) served by ``launch.serve.serve`` to 8 requests x
+   1,024 prompt tokens (numpy seed 0) x 64 generated tokens on five paths
+   (full attention, AES-KV at W = 256 and 64, the int8 cache, the int8
+   cache with AES-KV at W = 64) and at W = S_max, whose tokens must equal
+   full attention's; each ``lm_serve`` line with prefill and decode
+   seconds, tok/s and ms a decode step beside the weight-read bound (the
+   parameter bytes over 3.35 TB/s), the host's ms to issue one step and
+   the step's ms from an idle card, peak memory and the greedy agreement
+   with full attention (the full path also with the device's busy ms and
+   kernels a step from a ``torch.profiler`` trace); the gates
+   (``lm_serve_gates``): at ``cache_len = P`` the decode step against
+   ``forward`` over P + 1 tokens within 2**-5 of the largest logit,
+   AES-KV at W = S_max bit-equal to full attention, the int8 cache's
+   next-token softmax within 0.05 of the bfloat16 cache's, every logit
+   finite; then each uniform arch's smoke config in float32 on one set of
+   weights on the card and on the CPU (``lm_smoke_card_vs_cpu``): served
+   tokens equal (token archs), ``forward``'s logits to 1e-4 and each
+   decode step's, from the CPU's cache, to 2e-3.
    The kernel checks of the int8 layers and of phase 5 keep random
    parameters from a numpy seed: they hold kernels, not accuracy.
 5. Kernel times at the main path's shapes (CUDA events around batches of
@@ -1540,6 +1561,285 @@ def serving_path(P, ds, modules, full_acc) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4: LM serving
+# ---------------------------------------------------------------------------
+
+#: the full-width model of the LM phase, its requests, prompt and
+#: generated tokens
+LM_ARCH = "qwen2-7b"
+LM_REQUESTS, LM_PROMPT, LM_GEN = 8, 1024, 64
+#: (name, config options) of the served paths; "full" first
+LM_PATHS = (("full", {}), ("aes_kv_256", {"aes_kv_width": 256}),
+            ("aes_kv_64", {"aes_kv_width": 64}),
+            ("kv_int8", {"kv_quant_bits": 8}),
+            ("kv_int8_aes_kv_64", {"kv_quant_bits": 8, "aes_kv_width": 64}))
+#: decode steps issued one at a time from an idle card (host/device split)
+LM_TIMED_STEPS = 5
+#: the decode step at cache_len = P against ``forward`` over P + 1 tokens
+#: at its last position: max |difference| over max |logit| of ``forward``,
+#: eight bfloat16 unit roundoffs (2**-8): both round every layer's output
+#: to bfloat16, from products of different shapes
+LM_DECODE_REL_TOL = 2.0 ** -5
+#: the int8 cache's next-token softmax against the bfloat16 cache's
+#: (tests/test_archs.py:test_kv_int8_decode_close_to_fp)
+LM_INT8_PROB_TOL = 0.05
+#: smoke configs in float32, card against CPU: forward's logits (float32
+#: throughout, TF32 off) and each decode step's, from the CPU's cache
+#: (bfloat16 softmax weights and attention output, as in the reference;
+#: its own decode tolerance, tests/test_model_blocks.py)
+LM_SMOKE_FWD_TOL = 1e-4
+LM_SMOKE_DEC_TOL = 2e-3
+
+
+def _lm_step_split(P, cfg, model, tokens) -> dict:
+    """Prefill ``tokens``, then ``LM_TIMED_STEPS`` decode steps, each
+    issued from an idle card: the host's time to issue a step (its
+    dispatch alone) and the step's time to completion, medians in ms;
+    whether every logit was finite."""
+    torch = P.torch
+    P_len = tokens.shape[1]
+    logits, cache = P.prefill(cfg, model, tokens, P_len + LM_GEN)
+    tok = logits[:, -1:].argmax(dim=-1).to(torch.int32)
+    del logits
+    host, total, finite = [], [], True
+    for i in range(LM_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = P.decode_step(model, cfg, cache, tokens=tok,
+                                      cache_len=P_len + i)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        total.append((time.perf_counter() - t0) * 1e3)
+        host.append((t1 - t0) * 1e3)
+        finite &= bool(torch.isfinite(logits).all())
+        tok = logits.argmax(dim=-1).to(torch.int32)
+    return {"host_ms_per_step": statistics.median(host),
+            "step_ms_alone": statistics.median(total),
+            "logits_finite": finite}
+
+
+def _lm_device_busy_ms(P, cfg, model, tokens, steps=3):
+    """Device time of one decode step, the sum of its kernels' durations
+    in a ``torch.profiler`` trace of ``steps`` steps (None when the trace
+    holds no device time)."""
+    torch = P.torch
+    from torch.profiler import ProfilerActivity, profile
+
+    P_len = tokens.shape[1]
+    logits, cache = P.prefill(cfg, model, tokens, P_len + LM_GEN)
+    tok = logits[:, -1:].argmax(dim=-1).to(torch.int32)
+    del logits
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            logits, cache = P.decode_step(model, cfg, cache, tokens=tok,
+                                          cache_len=P_len + i)
+            tok = logits.argmax(dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", None)
+             or getattr(e, "self_cuda_time_total", 0)
+             for e in prof.key_averages())
+    kernels = sum(e.count for e in prof.key_averages())
+    return (us / 1e3 / steps if us else None), kernels / steps
+
+
+def _lm_gates(P, cfg, model, tokens) -> dict:
+    """At ``cache_len = P`` after the prefill of ``tokens``: the decode
+    step against ``forward`` over P + 1 tokens, AES-KV at W = S_max
+    against full attention (bit for bit), the int8 cache's softmax
+    against the bfloat16 cache's."""
+    torch = P.torch
+    P_len = tokens.shape[1]
+    S_max = P_len + LM_GEN
+    logits, cache = P.prefill(cfg, model, tokens, S_max)
+    tok = logits[:, -1:].argmax(dim=-1).to(torch.int32)
+    del logits
+    wide_cache = {k: v.clone() for k, v in cache.items()}
+    dec, _ = P.decode_step(model, cfg, cache, tokens=tok, cache_len=P_len)
+    wide, _ = P.decode_step(model, cfg.with_aes_kv(S_max), wide_cache,
+                            tokens=tok, cache_len=P_len)
+    wide_equal = bool(torch.equal(dec, wide))
+    del cache, wide_cache, wide
+    full, _, _ = P.forward(model, cfg, tokens=torch.cat([tokens, tok], 1))
+    last = full[:, -1:].clone()
+    del full
+    err = float((dec - last).abs().max())
+    scale = float(last.abs().max())
+    qcfg = cfg.with_options(kv_quant_bits=8)
+    logits, qcache = P.prefill(qcfg, model, tokens, S_max)
+    del logits
+    qdec, _ = P.decode_step(model, qcfg, qcache, tokens=tok,
+                            cache_len=P_len)
+    del qcache
+    prob_err = float((torch.softmax(qdec, -1) - torch.softmax(dec, -1)
+                      ).abs().max())
+    finite = all(bool(torch.isfinite(t).all()) for t in (dec, last, qdec))
+    return {"decode_vs_forward_max_abs_err": err,
+            "forward_max_abs_logit": scale,
+            "decode_vs_forward_rel_err": err / scale,
+            "decode_vs_forward_rel_tol": LM_DECODE_REL_TOL,
+            "decode_vs_forward_argmax_agree": float(
+                (dec.argmax(-1) == last.argmax(-1)).float().mean()),
+            "aes_kv_s_max_logits_bit_equal": wide_equal,
+            "int8_softmax_max_abs_err": prob_err,
+            "int8_softmax_tol": LM_INT8_PROB_TOL,
+            "logits_finite": finite}
+
+
+def lm_serve_path(P) -> dict:
+    """LM serving at full width: ``LM_ARCH`` unreduced in bfloat16, its
+    weights drawn on the card from seed 0, served on each of
+    ``LM_PATHS`` (and AES-KV at W = S_max, which must equal full
+    attention bit for bit) with ``launch.serve.serve``; then the gates of
+    :func:`_lm_gates`.  Returns the kernel launches of the run (counts set
+    to 0 at its start: the LM path launches none)."""
+    torch, np = P.torch, P.np
+    device = torch.device("cuda")
+    cfg = P.get_config(LM_ARCH)
+    P.ops.reset_launch_counts()               # the LM path starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = P.init_params(cfg, 0, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = list(model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in params)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log({"phase": "lm_model", "arch": LM_ARCH, "param_dtype":
+         cfg.param_dtype, "layers": cfg.num_layers, "d_model": cfg.d_model,
+         "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+         "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+         "vocab": cfg.vocab_size, "params": sum(p.numel() for p in params),
+         "param_bytes": nbytes, "weight_read_bound_ms": bound_ms,
+         "init_s": init_s})
+    prompts = np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (LM_REQUESTS, LM_PROMPT)).astype(np.int32)
+    tokens = torch.as_tensor(prompts, device=device)
+    S_max = LM_PROMPT + LM_GEN
+    failures, full = [], None
+    for name, opts in LM_PATHS + (("aes_kv_s_max",
+                                   {"aes_kv_width": S_max}),):
+        c = cfg.with_options(**opts)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gen, stats = P.serve(c, model, prompts, LM_GEN, device=device)
+        peak = torch.cuda.max_memory_allocated()
+        split = _lm_step_split(P, c, model, tokens)
+        full = gen if full is None else full
+        line = {"phase": "lm_serve", "arch": LM_ARCH, "path": name, **opts,
+                "requests": LM_REQUESTS, "prompt": LM_PROMPT,
+                "gen": LM_GEN, "prefill_s": stats.prefill_s,
+                "decode_s": stats.decode_s, "tok_per_s": stats.tok_per_s,
+                "ms_per_step": stats.decode_s / (LM_GEN - 1) * 1e3,
+                "weight_read_bound_ms": bound_ms, **split,
+                "peak_memory_gb": peak / 1e9,
+                "greedy_agreement_vs_full": float((gen == full).mean())}
+        if name == "full":
+            busy, kernels = _lm_device_busy_ms(P, c, model, tokens)
+            line["device_busy_ms_per_step"] = busy
+            line["kernels_per_step"] = kernels
+        log(line)
+        if not split["logits_finite"]:
+            failures.append(f"{name}: a logit is not finite")
+        if name == "aes_kv_s_max" and not np.array_equal(gen, full):
+            failures.append("AES-KV at W = S_max: tokens differ from full "
+                            "attention")
+    gates = _lm_gates(P, cfg, model, tokens)
+    log({"phase": "lm_serve_gates", "arch": LM_ARCH, **gates})
+    if not gates["aes_kv_s_max_logits_bit_equal"]:
+        failures.append("AES-KV at W = S_max: logits differ from full "
+                        "attention")
+    if not gates["decode_vs_forward_rel_err"] <= LM_DECODE_REL_TOL:
+        failures.append("decode step vs forward over P + 1 tokens: "
+                        f"{gates['decode_vs_forward_rel_err']} > "
+                        f"{LM_DECODE_REL_TOL} of the largest logit")
+    if not gates["int8_softmax_max_abs_err"] < LM_INT8_PROB_TOL:
+        failures.append("int8 cache softmax vs bfloat16: "
+                        f"{gates['int8_softmax_max_abs_err']}")
+    if not gates["logits_finite"]:
+        failures.append("a gate's logits are not finite")
+    del model
+    torch.cuda.empty_cache()
+    failures += lm_smoke_card_vs_cpu(P)
+    launched = P.ops.launch_counts()
+    if any(launched.values()):
+        failures.append(f"the LM path launched {launched}")
+    if failures:
+        raise AssertionError("lm_serve: " + "; ".join(failures))
+    return launched
+
+
+def lm_smoke_card_vs_cpu(P) -> list:
+    """Each uniform arch's smoke config in float32, one set of weights on
+    the card and on the CPU: token archs served on both (greedy tokens
+    equal; full attention, and AES-KV at W = 8 over the int8 cache where
+    the cache is K/V), every arch's forward logits and four decode steps'
+    (each from the CPU's cache; frontend stubs through ``embeds=``) within
+    ``LM_SMOKE_FWD_TOL`` / ``LM_SMOKE_DEC_TOL``.  Returns the failures."""
+    import copy
+
+    torch, np = P.torch, P.np
+    device = torch.device("cuda")
+    failures = []
+    for arch in P.ALL_ARCHS:
+        base = P.get_config(arch)
+        if base.block_pattern is not None:
+            continue
+        cfg = P.smoke_config(base).with_options(param_dtype="float32")
+        cpu_model = P.init_params(cfg, 0, device="cpu")
+        card_model = copy.deepcopy(cpu_model).to(device)
+        rng = np.random.default_rng(0)
+        B, S, steps = 4, 16, 4
+        line = {"phase": "lm_smoke_card_vs_cpu", "arch": arch}
+        if cfg.frontend is None:
+            prompts = rng.integers(1, cfg.vocab_size, (B, S)).astype(np.int32)
+            variants = [{}] + ([{"aes_kv_width": 8, "kv_quant_bits": 8}]
+                               if cfg.mla is None else [])
+            equal, served = [], []
+            for opts in variants:
+                c = cfg.with_options(**opts)
+                want, _ = P.serve(c, cpu_model, prompts, 8, device="cpu")
+                got, _ = P.serve(c, card_model, prompts, 8, device=device)
+                equal.append(bool(np.array_equal(got, want)))
+                served.append(want)
+            line["serve_tokens_equal"] = equal
+            if not all(equal):
+                failures.append(f"{arch}: served tokens differ card vs CPU")
+            first = {"tokens": torch.from_numpy(prompts)}
+            nexts = [{"tokens": torch.from_numpy(served[0][:, i:i + 1].copy())}
+                     for i in range(steps)]
+        else:
+            first = {"embeds": torch.from_numpy(
+                rng.normal(size=(B, S, cfg.d_model)).astype(np.float32))}
+            nexts = [{"embeds": torch.from_numpy(
+                rng.normal(size=(B, 1, cfg.d_model)).astype(np.float32))}
+                for _ in range(steps)]
+
+        def on_card(d):
+            return {k: v.to(device) for k, v in d.items()}
+
+        want, _, cache = P.forward(cpu_model, cfg, want_cache=True, **first)
+        got, _, _ = P.forward(card_model, cfg, want_cache=True,
+                              **on_card(first))
+        fwd_err = float((got.cpu() - want).abs().max())
+        cache = P.grow_cache(cache, S + steps)
+        dec_err = 0.0
+        for i, step in enumerate(nexts):
+            got, _ = P.decode_step(card_model, cfg, on_card(cache),
+                                   cache_len=S + i, **on_card(step))
+            want, cache = P.decode_step(cpu_model, cfg, cache,
+                                        cache_len=S + i, **step)
+            dec_err = max(dec_err, float((got.cpu() - want).abs().max()))
+        line.update(forward_max_abs_err=fwd_err, forward_tol=LM_SMOKE_FWD_TOL,
+                    decode_max_abs_err=dec_err, decode_tol=LM_SMOKE_DEC_TOL)
+        log(line)
+        if not (fwd_err <= LM_SMOKE_FWD_TOL and dec_err <= LM_SMOKE_DEC_TOL):
+            failures.append(f"{arch}: logits card vs CPU {fwd_err} / "
+                            f"{dec_err}")
+    return failures
+
+
+# ---------------------------------------------------------------------------
 # phase 5: timing helpers
 # ---------------------------------------------------------------------------
 
@@ -2063,6 +2363,9 @@ def port():
     from repro_torch.tuning import (PlanCache, apply_edge_updates,
                                     features_fingerprint, fingerprint,
                                     tune_blocked)
+    from repro_torch.configs import ALL_ARCHS, get_config, smoke_config
+    from repro_torch.launch.serve import grow_cache, prefill, serve
+    from repro_torch.models import decode_step, forward, init_params
 
     return SimpleNamespace(**{k: v for k, v in locals().items()})
 
@@ -2143,8 +2446,9 @@ def main() -> None:
         raise AssertionError("kernel block_ell_spmm was not launched on "
                              "the incremental path")
     serving = serving_path(P, ds, modules, full_acc)
+    lm = lm_serve_path(P)
     launches = {k: n + presampled[k] + tuned[k] + incremental[k] + serving[k]
-                for k, n in launches.items()}
+                + lm[k] for k, n in launches.items()}
 
     errs["fused_layer_int8"] = []
     int8_layers(P, ds, device, errs)

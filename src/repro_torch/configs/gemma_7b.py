@@ -1,0 +1,16 @@
+"""Gemma-7B [arXiv:2403.08295]: GeGLU, head_dim=256, tied embeddings."""
+from repro_torch.configs.base import ArchConfig, register
+
+GEMMA_7B = register(ArchConfig(
+    name="gemma-7b",
+    family="dense",
+    num_layers=28,
+    d_model=3072,
+    num_heads=16,
+    num_kv_heads=16,
+    head_dim=256,
+    d_ff=24576,
+    vocab_size=256000,
+    act="gelu",
+    tie_embeddings=True,
+))

@@ -491,3 +491,39 @@ def test_sharded_serving_on_the_card_equals_the_cpu(cuda):
         for i, r in enumerate(reqs):
             assert torch.equal(r.result(60), sync[t0 if i % 2 == 0 else t1])
         assert rt.snapshot()["counters"]["completed"] == 10
+
+
+def test_lm_serve_on_the_card_equals_the_cpu(cuda):
+    """Smoke configs in float32 on one set of weights, on ``cuda`` and on
+    the CPU: dense (full attention, and AES-KV at W = 8 over the int8
+    cache), Mixtral (SWA ring, MoE) and DeepSeek-V2 (MLA) served to equal
+    greedy tokens; each decode step's logits, from the CPU's cache, to
+    2e-3 (bfloat16 softmax weights and attention output, the reference's
+    decode tolerance)."""
+    import copy
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.launch.serve import prefill, serve
+    from repro_torch.models import decode_step, init_params
+
+    for arch, opts in (("qwen2-7b", {}),
+                       ("qwen2-7b", {"aes_kv_width": 8, "kv_quant_bits": 8}),
+                       ("mixtral-8x22b", {}), ("deepseek-v2-236b", {})):
+        cfg = smoke_config(get_config(arch)).with_options(
+            param_dtype="float32", **opts)
+        host = init_params(cfg, 0, device="cpu")
+        card = copy.deepcopy(host).to(cuda)
+        p = np.random.default_rng(0).integers(1, cfg.vocab_size, (4, 8)
+                                              ).astype(np.int32)
+        want, _ = serve(cfg, host, p, 8, device="cpu")
+        got, _ = serve(cfg, card, p, 8, device=cuda)
+        np.testing.assert_array_equal(got, want, err_msg=f"{arch} {opts}")
+        _, cache = prefill(cfg, host, torch.from_numpy(p), 16)
+        for i in range(4):
+            tok = torch.from_numpy(want[:, i:i + 1].copy())
+            on_card = {k: v.to(cuda) for k, v in cache.items()}
+            g, _ = decode_step(card, cfg, on_card, tokens=tok.to(cuda),
+                               cache_len=8 + i)
+            w, cache = decode_step(host, cfg, cache, tokens=tok,
+                                   cache_len=8 + i)
+            torch.testing.assert_close(g.cpu(), w, rtol=2e-3, atol=2e-3)

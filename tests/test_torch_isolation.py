@@ -1,11 +1,11 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` load neither
 JAX nor any module of the JAX package (the optimizer, the configs, the
-example modules, incremental plan maintenance, serving and the whole of
-``obs`` included), the port's
+example modules, incremental plan maintenance, serving, the whole of
+``obs``, the LM configs, models and serving driver included), the port's
 entry points default to the card (and raise without one instead of
 running on the CPU: ``evaluate``,
 ``make_dataset``, ``train_model``, ``make_presampled_agg``,
-``GNNServer``), and the
+``GNNServer``, the LM's ``init_params`` and ``serve``), and the
 smoke script refuses to report a result without a card or without the
 repository around it."""
 from __future__ import annotations
@@ -41,7 +41,12 @@ for name in ("repro_torch.optim.adamw", "repro_torch.configs.gnn_paper",
              "repro_torch.serving.runtime", "repro_torch.serving.server",
              "repro_torch.serving.telemetry", "repro_torch.serving.traffic",
              "repro_torch.distributed.serving", "repro_torch.obs.export",
-             "repro_torch.obs.__main__"):
+             "repro_torch.obs.__main__", "repro_torch.configs.base",
+             "repro_torch.configs.qwen2_7b", "repro_torch.configs.zamba2_7b",
+             "repro_torch.models.layers", "repro_torch.models.attention",
+             "repro_torch.models.moe", "repro_torch.models.lm",
+             "repro_torch.models.convert", "repro_torch.launch.serve",
+             "repro_torch.examples.aes_kv_serving"):
     assert name in names, name
 print("MODULES", len(names))
 
@@ -63,12 +68,20 @@ else:
         make_dataset("cora", scale=0.01)
     except RuntimeError:
         print("DATASET_RAISED_WITHOUT_CARD")
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import init_params
+    lm_cfg = smoke_config(get_config("qwen2-7b"))
+    lm = init_params(lm_cfg, device="cpu")
     from repro_torch.serving import GNNServer
     for name, call in (
             ("TRAIN", lambda: train_model(ds, "gcn", hidden=8, epochs=1)),
             ("PRESAMPLED", lambda: make_presampled_agg(ds.gcn_adj, 8,
                                                        backend="cuda")),
-            ("SERVER", lambda: GNNServer(ds.gcn_adj, ds.features))):
+            ("SERVER", lambda: GNNServer(ds.gcn_adj, ds.features)),
+            ("LM_INIT", lambda: init_params(lm_cfg)),
+            ("LM_SERVE", lambda: serve(lm_cfg, lm, np.ones((1, 4), np.int32),
+                                       2))):
         try:
             call()
         except RuntimeError as exc:
@@ -90,7 +103,8 @@ def test_port_loads_no_jax_and_defaults_to_the_card():
     n_modules = int(out.stdout.split("MODULES")[1].split()[0])
     assert n_modules >= 15
     if "EVALUATED_ON_CUDA" not in out.stdout:
-        for what in ("", "DATASET_", "TRAIN_", "PRESAMPLED_", "SERVER_"):
+        for what in ("", "DATASET_", "TRAIN_", "PRESAMPLED_", "SERVER_",
+                     "LM_INIT_", "LM_SERVE_"):
             assert what + "RAISED_WITHOUT_CARD" in out.stdout, what
 
 
