@@ -119,10 +119,35 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    ``forward`` over P + 1 tokens within 2**-5 of the largest logit,
    AES-KV at W = S_max bit-equal to full attention, the int8 cache's
    next-token softmax within 0.05 of the bfloat16 cache's, every logit
-   finite; then each uniform arch's smoke config in float32 on one set of
-   weights on the card and on the CPU (``lm_smoke_card_vs_cpu``): served
-   tokens equal (token archs), ``forward``'s logits to 1e-4 and each
-   decode step's, from the CPU's cache, to 2e-3.
+   finite; then each of the ten archs' smoke config in float32 on one set
+   of weights on the card and on the CPU (``lm_smoke_card_vs_cpu``):
+   served tokens equal (token archs), ``forward``'s logits to 1e-4 and
+   each decode step's, from the CPU's cache, to 2e-3.
+   Then the pattern families, their launch counts set to 0 just before
+   and read just after (none launched): Zamba2-7B and xLSTM-350M
+   unreduced in bfloat16, weights drawn on the card from seed 0, served to
+   the same requests (Zamba2 also with AES-KV at W = 256 and at W = S_max,
+   whose tokens must equal full attention's); each ``lm_pattern_serve``
+   line with the bytes-a-step bound (weights less the embedding table,
+   the shared attention + MLP once an application, recurrent states and
+   conv caches read and written, K/V read at the positions the step
+   needs), the full path also with the costliest kernels of a step from
+   a ``torch.profiler`` trace; the gates (``lm_pattern_serve_gates``):
+   the decode step at ``cache_len = P`` against ``forward`` over the
+   P + 1 tokens (padded to a whole 128-position scan chunk; later
+   positions cannot reach P) within 2**-5 of the largest logit on a
+   float32 copy of the weights (in bfloat16 it is logged: the rounding
+   of the residual stream compounds over the depth), W = S_max bit-equal
+   and every logit finite in both.
+   Then LM training, its launch counts likewise (none launched):
+   TinyLlama-1.1B unreduced in bfloat16 through ``launch.train``'s step
+   (AdamW, remat on) with the token pipeline and the cosine schedule, B 8
+   x S 256, 10 steps: s a step, tokens/s beside the 6 N tokens bound at
+   the bfloat16 rate, peak memory, first and last loss; 3 steps of
+   ``launch.train.main --grad-compress``; xLSTM-350M unreduced, 5 steps
+   on one constant batch, whose loss must fall; and at smoke size a run
+   failing at an injected step, its checkpoint restored bit for bit and
+   a resumed run whose losses match an uninterrupted one's to 1e-3.
    The kernel checks of the int8 layers and of phase 5 keep random
    parameters from a numpy seed: they hold kernels, not accuracy.
 5. Kernel times at the main path's shapes (CUDA events around batches of
@@ -150,6 +175,7 @@ from __future__ import annotations
 import functools
 import inspect
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -169,6 +195,8 @@ FP32_FLOP_PER_S = 67e12
 #: layer's 3xTF32 transform issues three TF32 products per product, so it
 #: runs at a third of it.
 TF32_FLOP_PER_S = 495e12
+#: H100 SXM dense bfloat16 tensor-core rate (data sheet), FLOP/s.
+BF16_FLOP_PER_S = 989e12
 
 #: W and the hidden width of the paper's reddit configurations, read from
 #: ``repro_torch.configs`` by :func:`main` (the port is imported there)
@@ -1618,10 +1646,11 @@ def _lm_step_split(P, cfg, model, tokens) -> dict:
             "logits_finite": finite}
 
 
-def _lm_device_busy_ms(P, cfg, model, tokens, steps=3):
+def _lm_device_profile(P, cfg, model, tokens, steps=3, top=0) -> dict:
     """Device time of one decode step, the sum of its kernels' durations
     in a ``torch.profiler`` trace of ``steps`` steps (None when the trace
-    holds no device time)."""
+    holds no device time), the kernels a step, and the ``top`` kernels by
+    device time: [name, ms a step, calls a step]."""
     torch = P.torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1636,54 +1665,89 @@ def _lm_device_busy_ms(P, cfg, model, tokens, steps=3):
                                           cache_len=P_len + i)
             tok = logits.argmax(dim=-1).to(torch.int32)
         torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", None)
-             or getattr(e, "self_cuda_time_total", 0)
-             for e in prof.key_averages())
-    kernels = sum(e.count for e in prof.key_averages())
-    return (us / 1e3 / steps if us else None), kernels / steps
+
+    def device_us(e):
+        return (getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0))
+
+    events = prof.key_averages()
+    us = sum(device_us(e) for e in events)
+    out = {"device_busy_ms_per_step": us / 1e3 / steps if us else None,
+           "kernels_per_step": sum(e.count for e in events) / steps}
+    if top:
+        out["top_kernels"] = [
+            [_kernel_label(e.key), device_us(e) / 1e3 / steps,
+             e.count / steps]
+            for e in sorted(events, key=device_us, reverse=True)[:top]]
+    return out
 
 
-def _lm_gates(P, cfg, model, tokens) -> dict:
+def _kernel_label(name: str) -> str:
+    """A kernel's name cut to what tells kernels apart: the GEMM's own
+    name, or an elementwise kernel's launcher and its functors and
+    dtypes (the template arguments run to hundreds of characters)."""
+    if not name.startswith("void at::native"):
+        return name[:64]
+    parts = re.findall(r"\w*(?:Functor|_kernel)\w*|BFloat16|float|long", name)
+    return " ".join(dict.fromkeys(parts))[:160]
+
+
+def _to_device(tree, device):
+    """A copy of a (nested) cache on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
+    return tree.to(device, copy=True)
+
+
+def _lm_gates(P, cfg, model, tokens, int8=True, chunk=1) -> dict:
     """At ``cache_len = P`` after the prefill of ``tokens``: the decode
-    step against ``forward`` over P + 1 tokens, AES-KV at W = S_max
-    against full attention (bit for bit), the int8 cache's softmax
-    against the bfloat16 cache's."""
+    step against ``forward`` over P + 1 tokens (padded with copies of the
+    new token to P + ``chunk``, where the chunked scans of the pattern
+    blocks need whole chunks: later positions cannot reach position P),
+    AES-KV at W = S_max against full attention (bit for bit), and with
+    ``int8`` the int8 cache's softmax against the bfloat16 cache's."""
     torch = P.torch
     P_len = tokens.shape[1]
     S_max = P_len + LM_GEN
     logits, cache = P.prefill(cfg, model, tokens, S_max)
     tok = logits[:, -1:].argmax(dim=-1).to(torch.int32)
     del logits
-    wide_cache = {k: v.clone() for k, v in cache.items()}
+    wide_cache = _to_device(cache, tokens.device)
     dec, _ = P.decode_step(model, cfg, cache, tokens=tok, cache_len=P_len)
     wide, _ = P.decode_step(model, cfg.with_aes_kv(S_max), wide_cache,
                             tokens=tok, cache_len=P_len)
     wide_equal = bool(torch.equal(dec, wide))
     del cache, wide_cache, wide
-    full, _, _ = P.forward(model, cfg, tokens=torch.cat([tokens, tok], 1))
-    last = full[:, -1:].clone()
+    seq = torch.cat([tokens, tok.expand(-1, chunk)], 1)
+    full, _, _ = P.forward(model, cfg, tokens=seq)
+    last = full[:, P_len:P_len + 1].clone()
     del full
     err = float((dec - last).abs().max())
     scale = float(last.abs().max())
-    qcfg = cfg.with_options(kv_quant_bits=8)
-    logits, qcache = P.prefill(qcfg, model, tokens, S_max)
-    del logits
-    qdec, _ = P.decode_step(model, qcfg, qcache, tokens=tok,
-                            cache_len=P_len)
-    del qcache
-    prob_err = float((torch.softmax(qdec, -1) - torch.softmax(dec, -1)
-                      ).abs().max())
-    finite = all(bool(torch.isfinite(t).all()) for t in (dec, last, qdec))
-    return {"decode_vs_forward_max_abs_err": err,
-            "forward_max_abs_logit": scale,
-            "decode_vs_forward_rel_err": err / scale,
-            "decode_vs_forward_rel_tol": LM_DECODE_REL_TOL,
-            "decode_vs_forward_argmax_agree": float(
-                (dec.argmax(-1) == last.argmax(-1)).float().mean()),
-            "aes_kv_s_max_logits_bit_equal": wide_equal,
-            "int8_softmax_max_abs_err": prob_err,
-            "int8_softmax_tol": LM_INT8_PROB_TOL,
-            "logits_finite": finite}
+    out = {"decode_vs_forward_max_abs_err": err,
+           "forward_max_abs_logit": scale,
+           "decode_vs_forward_rel_err": err / scale,
+           "decode_vs_forward_rel_tol": LM_DECODE_REL_TOL,
+           "decode_vs_forward_argmax_agree": float(
+               (dec.argmax(-1) == last.argmax(-1)).float().mean()),
+           "aes_kv_s_max_logits_bit_equal": wide_equal}
+    finite = [dec, last]
+    if int8:
+        qcfg = cfg.with_options(kv_quant_bits=8)
+        logits, qcache = P.prefill(qcfg, model, tokens, S_max)
+        del logits
+        qdec, _ = P.decode_step(model, qcfg, qcache, tokens=tok,
+                                cache_len=P_len)
+        del qcache
+        out["int8_softmax_max_abs_err"] = float(
+            (torch.softmax(qdec, -1) - torch.softmax(dec, -1)).abs().max())
+        out["int8_softmax_tol"] = LM_INT8_PROB_TOL
+        finite.append(qdec)
+    out["logits_finite"] = all(bool(torch.isfinite(t).all())
+                               for t in finite)
+    return out
 
 
 def lm_serve_path(P) -> dict:
@@ -1735,9 +1799,7 @@ def lm_serve_path(P) -> dict:
                 "peak_memory_gb": peak / 1e9,
                 "greedy_agreement_vs_full": float((gen == full).mean())}
         if name == "full":
-            busy, kernels = _lm_device_busy_ms(P, c, model, tokens)
-            line["device_busy_ms_per_step"] = busy
-            line["kernels_per_step"] = kernels
+            line.update(_lm_device_profile(P, c, model, tokens))
         log(line)
         if not split["logits_finite"]:
             failures.append(f"{name}: a logit is not finite")
@@ -1770,22 +1832,21 @@ def lm_serve_path(P) -> dict:
 
 
 def lm_smoke_card_vs_cpu(P) -> list:
-    """Each uniform arch's smoke config in float32, one set of weights on
-    the card and on the CPU: token archs served on both (greedy tokens
+    """Each of the ten archs' smoke config in float32, one set of weights
+    on the card and on the CPU: token archs served on both (greedy tokens
     equal; full attention, and AES-KV at W = 8 over the int8 cache where
-    the cache is K/V), every arch's forward logits and four decode steps'
-    (each from the CPU's cache; frontend stubs through ``embeds=``) within
-    ``LM_SMOKE_FWD_TOL`` / ``LM_SMOKE_DEC_TOL``.  Returns the failures."""
+    the cache is a uniform K/V cache), every arch's forward logits and
+    four decode steps' (each from the CPU's cache; frontend stubs through
+    ``embeds=``) within ``LM_SMOKE_FWD_TOL`` / ``LM_SMOKE_DEC_TOL``.
+    Returns the failures."""
     import copy
 
     torch, np = P.torch, P.np
     device = torch.device("cuda")
     failures = []
     for arch in P.ALL_ARCHS:
-        base = P.get_config(arch)
-        if base.block_pattern is not None:
-            continue
-        cfg = P.smoke_config(base).with_options(param_dtype="float32")
+        cfg = P.smoke_config(P.get_config(arch)).with_options(
+            param_dtype="float32")
         cpu_model = P.init_params(cfg, 0, device="cpu")
         card_model = copy.deepcopy(cpu_model).to(device)
         rng = np.random.default_rng(0)
@@ -1794,7 +1855,8 @@ def lm_smoke_card_vs_cpu(P) -> list:
         if cfg.frontend is None:
             prompts = rng.integers(1, cfg.vocab_size, (B, S)).astype(np.int32)
             variants = [{}] + ([{"aes_kv_width": 8, "kv_quant_bits": 8}]
-                               if cfg.mla is None else [])
+                               if cfg.mla is None and cfg.block_pattern is None
+                               else [])
             equal, served = [], []
             for opts in variants:
                 c = cfg.with_options(**opts)
@@ -1815,18 +1877,16 @@ def lm_smoke_card_vs_cpu(P) -> list:
                 rng.normal(size=(B, 1, cfg.d_model)).astype(np.float32))}
                 for _ in range(steps)]
 
-        def on_card(d):
-            return {k: v.to(device) for k, v in d.items()}
-
         want, _, cache = P.forward(cpu_model, cfg, want_cache=True, **first)
         got, _, _ = P.forward(card_model, cfg, want_cache=True,
-                              **on_card(first))
+                              **_to_device(first, device))
         fwd_err = float((got.cpu() - want).abs().max())
         cache = P.grow_cache(cache, S + steps)
         dec_err = 0.0
         for i, step in enumerate(nexts):
-            got, _ = P.decode_step(card_model, cfg, on_card(cache),
-                                   cache_len=S + i, **on_card(step))
+            got, _ = P.decode_step(card_model, cfg, _to_device(cache, device),
+                                   cache_len=S + i,
+                                   **_to_device(step, device))
             want, cache = P.decode_step(cpu_model, cfg, cache,
                                         cache_len=S + i, **step)
             dec_err = max(dec_err, float((got.cpu() - want).abs().max()))
@@ -1837,6 +1897,372 @@ def lm_smoke_card_vs_cpu(P) -> list:
             failures.append(f"{arch}: logits card vs CPU {fwd_err} / "
                             f"{dec_err}")
     return failures
+
+
+#: the pattern archs served at full width ("full", AES-KV at W = 256 and at
+#: W = S_max on Zamba2's shared attention; xLSTM has no attention cache)
+LM_PATTERN_ARCHS = ("zamba2-7b", "xlstm-350m")
+#: the chunk of ``mamba_block``/``mlstm_block``'s scan: a prefill or
+#: forward covers whole chunks of it
+LM_SCAN_CHUNK = 128
+#: kernels of a Zamba2 decode step listed by device time
+LM_TOP_KERNELS = 12
+
+
+def _decode_bytes(P, cfg, model, batch: int, kv_positions: int) -> dict:
+    """Bytes a decode step must move: every weight once, but only the
+    embedding rows of the batch and the weight-shared attention + MLP
+    once an application; every recurrent state and conv cache read and
+    written; each attention cache's K/V read at ``kv_positions``
+    positions; the float32 logits written."""
+    def nbytes(tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    weights = (nbytes(model.parameters()) - nbytes([model.embed])
+               + batch * model.embed.shape[1] * model.embed.element_size())
+    if hasattr(model, "shared_attn"):
+        apps = (len(model.groups) if hasattr(model, "groups")
+                else cfg.block_pattern.count("shared_attn"))
+        weights += (apps - 1) * nbytes(list(model.shared_attn.parameters())
+                                       + list(model.shared_mlp.parameters()))
+    states = kv = 0
+
+    def walk(tree, name=""):
+        nonlocal states, kv
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, k)
+        elif isinstance(tree, list):
+            for v in tree:
+                walk(v, name)
+        elif name in ("k", "v"):
+            kv += tree.numel() * tree.element_size()
+        else:
+            states += 2 * tree.numel() * tree.element_size()
+
+    walk(P.init_cache(cfg, batch, kv_positions, device="meta"))
+    logits = batch * cfg.vocab_size * 4
+    total = weights + states + kv + logits
+    return {"weight_bytes": weights, "state_bytes": states, "kv_bytes": kv,
+            "logit_bytes": logits, "bytes_per_step": total,
+            "bytes_bound_ms": total / HBM_BYTES_PER_S * 1e3}
+
+
+def lm_pattern_serve_path(P) -> dict:
+    """The pattern families at full width: ``LM_PATTERN_ARCHS`` unreduced
+    in bfloat16, weights drawn on the card from seed 0, served by
+    ``launch.serve.serve`` to ``LM_REQUESTS`` x ``LM_PROMPT`` prompt
+    tokens x ``LM_GEN`` generated tokens (Zamba2 also with AES-KV at
+    W = 256 and at W = S_max, which must equal full attention); each line
+    with the bytes-a-step bound of :func:`_decode_bytes` (the full path
+    also with the device's busy ms and its costliest kernels from a
+    ``torch.profiler`` trace); then :func:`_lm_gates` without the int8
+    cache (the pattern caches have none), the forward padded to whole
+    scan chunks, in bfloat16 and on a float32 copy of the weights
+    (decode vs forward gated in float32 only).  Returns the kernel launches of the run (counts set to 0
+    at its start: it launches none)."""
+    torch, np = P.torch, P.np
+    device = torch.device("cuda")
+    S_max = LM_PROMPT + LM_GEN
+    P.ops.reset_launch_counts()          # the pattern path starts here
+    failures = []
+    for arch in LM_PATTERN_ARCHS:
+        cfg = P.get_config(arch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = P.init_params(cfg, 0, device=device)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        params = list(model.parameters())
+        log({"phase": "lm_model", "arch": arch, "param_dtype":
+             cfg.param_dtype, "layers": cfg.num_layers,
+             "d_model": cfg.d_model, "heads": cfg.num_heads,
+             "ssm_state": cfg.ssm_state, "attn_every": cfg.attn_every,
+             "blocks": {k: cfg.block_pattern.count(k)
+                        for k in sorted(set(cfg.block_pattern))},
+             "vocab": cfg.vocab_size,
+             "params": sum(p.numel() for p in params),
+             "param_bytes": sum(p.numel() * p.element_size()
+                                for p in params), "init_s": init_s})
+        prompts = np.random.default_rng(0).integers(
+            1, cfg.vocab_size, (LM_REQUESTS, LM_PROMPT)).astype(np.int32)
+        tokens = torch.as_tensor(prompts, device=device)
+        paths = [("full", {})]
+        if "shared_attn" in cfg.block_pattern:
+            paths += [("aes_kv_256", {"aes_kv_width": 256}),
+                      ("aes_kv_s_max", {"aes_kv_width": S_max})]
+        full = None
+        for name, opts in paths:
+            c = cfg.with_options(**opts)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            gen, stats = P.serve(c, model, prompts, LM_GEN, device=device)
+            peak = torch.cuda.max_memory_allocated()
+            split = _lm_step_split(P, c, model, tokens)
+            full = gen if full is None else full
+            positions = min(c.aes_kv_width or S_max, LM_PROMPT + LM_GEN // 2)
+            line = {"phase": "lm_pattern_serve", "arch": arch, "path": name,
+                    **opts, "requests": LM_REQUESTS, "prompt": LM_PROMPT,
+                    "gen": LM_GEN, "prefill_s": stats.prefill_s,
+                    "decode_s": stats.decode_s, "tok_per_s": stats.tok_per_s,
+                    "ms_per_step": stats.decode_s / (LM_GEN - 1) * 1e3,
+                    **_decode_bytes(P, c, model, LM_REQUESTS, positions),
+                    "kv_positions_in_bound": positions, **split,
+                    "peak_memory_gb": peak / 1e9,
+                    "greedy_agreement_vs_full": float((gen == full).mean())}
+            if name == "full":
+                line.update(_lm_device_profile(P, c, model, tokens,
+                                               top=LM_TOP_KERNELS))
+            log(line)
+            if not split["logits_finite"]:
+                failures.append(f"{arch} {name}: a logit is not finite")
+            if name == "aes_kv_s_max" and not np.array_equal(gen, full):
+                failures.append(f"{arch}: AES-KV at W = S_max: tokens "
+                                "differ from full attention")
+        # decode vs forward is gated on a float32 copy of the weights: in
+        # bfloat16 the residual stream's rounding compounds over the depth
+        # (xLSTM 4-9% of the largest logit; the reference's own decode
+        # 4.4% on the CPU), so there it is logged, not gated
+        for dtype in ("bfloat16", "float32"):
+            if dtype == "float32":
+                model = model.float()
+            c = cfg.with_options(param_dtype=dtype)
+            gates = _lm_gates(P, c, model, tokens, int8=False,
+                              chunk=LM_SCAN_CHUNK)
+            gated = dtype == "float32"
+            log({"phase": "lm_pattern_serve_gates", "arch": arch,
+                 "param_dtype": dtype, "decode_vs_forward_gated": gated,
+                 **gates})
+            if not gates["aes_kv_s_max_logits_bit_equal"]:
+                failures.append(f"{arch} {dtype}: AES-KV at W = S_max: "
+                                "logits differ")
+            if gated and not (gates["decode_vs_forward_rel_err"]
+                              <= LM_DECODE_REL_TOL):
+                failures.append(f"{arch} {dtype}: decode step vs forward: "
+                                f"{gates['decode_vs_forward_rel_err']} > "
+                                f"{LM_DECODE_REL_TOL} of the largest logit")
+            if not gates["logits_finite"]:
+                failures.append(f"{arch} {dtype}: a gate's logits are not "
+                                "finite")
+        del model, params
+        torch.cuda.empty_cache()
+    launched = P.ops.launch_counts()
+    if any(launched.values()):
+        failures.append(f"the pattern path launched {launched}")
+    if failures:
+        raise AssertionError("lm_pattern_serve: " + "; ".join(failures))
+    return launched
+
+
+#: the full-width training run: the reference launcher's defaults
+#: (batch 8, sequence 256, lr 3e-4, the cosine schedule), remat on
+LM_TRAIN_ARCH = "tinyllama-1.1b"
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_LR = 8, 256, 3e-4
+LM_TRAIN_STEPS = 10
+#: ``main --grad-compress``: its schedule's lr is 0 at step 0 (warmup),
+#: so the third step's loss is the first a compressed update moves
+LM_TRAIN_COMPRESS_STEPS = 3
+#: xLSTM at full width on one constant batch, at the launcher's lr (the
+#: smoke tests' 3e-3 diverges at this width: 11.3 -> 16.3 in 5 steps)
+LM_TRAIN_XLSTM_STEPS, LM_TRAIN_XLSTM_LR = 5, 3e-4
+#: the resume gate (smoke config): losses of the resumed steps against an
+#: uninterrupted run's, relative (the embedding's gradient sums in atomic
+#: order on the card, and AdamW's first steps move a weight by about lr
+#: times its gradient's sign, so one last-bit difference moves the loss)
+LM_RESUME_STEPS, LM_RESUME_FAIL_AT, LM_RESUME_EVERY = 8, 5, 4
+LM_RESUME_TOL = 1e-3
+
+
+def _train_run(P, cfg, step_fn, state, batch_at, steps: int) -> tuple:
+    """``steps`` steps from ``state``; (state, losses, seconds a step)."""
+    torch = P.torch
+    losses, times = [], []
+    for i in range(steps):
+        batch = batch_at(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))
+        times.append(time.perf_counter() - t0)
+    return state, losses, times
+
+
+def _resume_gate(P, device) -> dict:
+    """The checkpoint, injected-failure and resume path at smoke size on
+    the card: an uninterrupted run of ``LM_RESUME_STEPS``; a run that
+    checkpoints every ``LM_RESUME_EVERY`` steps and fails at
+    ``LM_RESUME_FAIL_AT``; its last checkpoint restored bit for bit (the
+    bfloat16 parameters as their bits); a runner resuming from it whose
+    losses match the uninterrupted run's."""
+    import tempfile
+
+    torch, np = P.torch, P.np
+    cfg = P.smoke_config(P.get_config(LM_TRAIN_ARCH))
+    model = P.init_params(cfg, 0, device=device)
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    state0 = (params, P.adamw_init(params))
+    step_fn = P.make_train_step(cfg, model, P.cosine_with_warmup(
+        LM_TRAIN_LR, 1, LM_RESUME_STEPS))
+    pipe = P.make_pipeline(cfg, seq_len=64, global_batch=4)
+
+    def batch_at(step):
+        return {k: torch.as_tensor(v, device=device)
+                for k, v in pipe.batch_at(step).items()}
+
+    def recording(losses, states):
+        def run(state, batch):
+            state, metrics = step_fn(state, batch)
+            losses.append(float(metrics["loss"]))
+            states.append(state)
+            return state, metrics
+        return run
+
+    out = {"phase": "lm_train_resume", "arch": LM_TRAIN_ARCH,
+           "config": "smoke", "steps": LM_RESUME_STEPS,
+           "fail_at": LM_RESUME_FAIL_AT, "ckpt_every": LM_RESUME_EVERY}
+    with tempfile.TemporaryDirectory() as tmp:
+        clean, clean_states = [], []
+        P.FaultTolerantRunner(P.RunnerConfig(
+            LM_RESUME_STEPS, f"{tmp}/clean", ckpt_every=100)).run(
+            recording(clean, clean_states), state0, batch_at, start_step=0)
+        failed, failed_states = [], []
+        try:
+            P.FaultTolerantRunner(P.RunnerConfig(
+                LM_RESUME_STEPS, f"{tmp}/ft", ckpt_every=LM_RESUME_EVERY,
+                inject_failure_at=LM_RESUME_FAIL_AT)).run(
+                recording(failed, failed_states), state0, batch_at,
+                start_step=0)
+            out["failure_raised"] = False
+        except P.SimulatedFailure:
+            out["failure_raised"] = True
+        saved = P.latest_step(f"{tmp}/ft")
+        restored = P.restore_checkpoint(f"{tmp}/ft", saved, state0)
+        bits = [(a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+                 b.cpu().view(torch.int16) if b.dtype == torch.bfloat16
+                 else b.cpu())
+                for (_, a), (_, b) in zip(P.flatten(restored),
+                                          P.flatten(failed_states[saved - 1]))]
+        out["checkpoint_step"] = saved
+        out["checkpoint_bit_exact"] = all(torch.equal(a, b) for a, b in bits)
+        resumed = []
+        _, step, _ = P.FaultTolerantRunner(P.RunnerConfig(
+            LM_RESUME_STEPS, f"{tmp}/ft", ckpt_every=LM_RESUME_EVERY)).run(
+            recording(resumed, []), state0, batch_at)
+    want = clean[saved:]
+    out.update(resumed_from=saved, steps_done=step, clean_losses=clean,
+               resumed_losses=resumed,
+               resumed_bit_equal=resumed == want,
+               resumed_max_rel_err=float(np.max(np.abs(
+                   np.array(resumed) - np.array(want)) / np.abs(want)))
+               if len(resumed) == len(want) else None,
+               tol=LM_RESUME_TOL)
+    return out
+
+
+def lm_train_path(P) -> dict:
+    """LM training on the card: ``LM_TRAIN_ARCH`` unreduced in bfloat16
+    through ``launch.train.make_train_step`` (AdamW, weight decay 0.1,
+    remat on) with the token pipeline and the cosine schedule, s a step
+    and tokens/s beside the 6 N tokens bound at the bfloat16 rate, peak
+    memory, first and last loss; ``LM_TRAIN_COMPRESS_STEPS`` steps of
+    ``launch.train.main --grad-compress``; xLSTM-350M unreduced on one
+    constant batch, whose loss must fall; then :func:`_resume_gate`.
+    Zamba2 is not trained here: its float32 moments alone (45.7 GB) and
+    its parameters and gradients (22.9 GB) leave no room for
+    activations.  Returns the kernel launches (counts set to 0 at its
+    start: it launches none)."""
+    import tempfile
+
+    torch, np = P.torch, P.np
+    device = torch.device("cuda")
+    P.ops.reset_launch_counts()          # the training path starts here
+    failures = []
+
+    cfg = P.get_config(LM_TRAIN_ARCH)
+    model = P.init_params(cfg, 0, device=device)
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    n_params = sum(p.numel() for p in params.values())
+    pipe = P.make_pipeline(cfg, seq_len=LM_TRAIN_SEQ,
+                           global_batch=LM_TRAIN_BATCH)
+    step_fn = P.make_train_step(cfg, model, P.cosine_with_warmup(
+        LM_TRAIN_LR, warmup_steps=max(LM_TRAIN_STEPS // 20, 1),
+        total_steps=LM_TRAIN_STEPS))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, losses, times = _train_run(
+        P, cfg, step_fn, (params, P.adamw_init(params)),
+        lambda i: {k: torch.as_tensor(v, device=device)
+                   for k, v in pipe.batch_at(i).items()}, LM_TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    flops = 6 * n_params * tokens
+    s_step = statistics.median(times[1:])
+    log({"phase": "lm_train", "arch": LM_TRAIN_ARCH, "param_dtype":
+         cfg.param_dtype, "params": n_params, "batch": LM_TRAIN_BATCH,
+         "seq": LM_TRAIN_SEQ, "remat_policy": cfg.remat_policy or "full",
+         "steps": LM_TRAIN_STEPS, "first_step_s": times[0],
+         "s_per_step": s_step, "tokens_per_s": tokens / s_step,
+         "flop_per_step": flops,
+         "flop_bound_ms": flops / BF16_FLOP_PER_S * 1e3,
+         "bound_share": flops / BF16_FLOP_PER_S / s_step,
+         "peak_memory_gb": peak / 1e9, "first_loss": losses[0],
+         "last_loss": losses[-1], "losses": losses})
+    if not np.isfinite(losses).all():
+        failures.append(f"{LM_TRAIN_ARCH}: a loss is not finite")
+    del state, params, model, step_fn
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        compressed = P.train_main([
+            "--arch", LM_TRAIN_ARCH, "--steps", str(LM_TRAIN_COMPRESS_STEPS),
+            "--seq", str(LM_TRAIN_SEQ), "--batch", str(LM_TRAIN_BATCH),
+            "--grad-compress", "--ckpt-dir", tmp, "--ckpt-every", "100",
+            "--device", "cuda"])
+    log({"phase": "lm_train_grad_compress", "arch": LM_TRAIN_ARCH,
+         "steps": LM_TRAIN_COMPRESS_STEPS, "losses": compressed,
+         "wall_s": time.perf_counter() - t0})
+    if not np.isfinite(compressed).all():
+        failures.append("--grad-compress: a loss is not finite")
+    torch.cuda.empty_cache()
+
+    cfg = P.get_config("xlstm-350m")
+    model = P.init_params(cfg, 0, device=device)
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    batch = {k: torch.as_tensor(v, device=device) for k, v in P.make_pipeline(
+        cfg, seq_len=LM_TRAIN_SEQ, global_batch=LM_TRAIN_BATCH
+    ).batch_at(0).items()}
+    torch.cuda.reset_peak_memory_stats()
+    _, losses, times = _train_run(
+        P, cfg, P.make_train_step(cfg, model, P.constant(LM_TRAIN_XLSTM_LR)),
+        (params, P.adamw_init(params)), lambda i: batch,
+        LM_TRAIN_XLSTM_STEPS)
+    log({"phase": "lm_train", "arch": "xlstm-350m", "params":
+         sum(p.numel() for p in params.values()), "batch": LM_TRAIN_BATCH,
+         "seq": LM_TRAIN_SEQ, "constant_batch": True,
+         "lr": LM_TRAIN_XLSTM_LR, "steps": LM_TRAIN_XLSTM_STEPS,
+         "first_step_s": times[0], "s_per_step": statistics.median(times[1:]),
+         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "first_loss": losses[0], "last_loss": losses[-1],
+         "losses": losses})
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        failures.append(f"xlstm-350m: the loss did not fall: {losses}")
+    del params, model
+    torch.cuda.empty_cache()
+
+    gate = _resume_gate(P, device)
+    log(gate)
+    if not (gate["failure_raised"] and gate["checkpoint_bit_exact"]
+            and gate["steps_done"] == LM_RESUME_STEPS
+            and gate["resumed_max_rel_err"] is not None
+            and gate["resumed_max_rel_err"] <= LM_RESUME_TOL):
+        failures.append(f"resume gate: {gate}")
+    launched = P.ops.launch_counts()
+    if any(launched.values()):
+        failures.append(f"the training path launched {launched}")
+    if failures:
+        raise AssertionError("lm_train: " + "; ".join(failures))
+    return launched
 
 
 # ---------------------------------------------------------------------------
@@ -2365,7 +2791,16 @@ def port():
                                     tune_blocked)
     from repro_torch.configs import ALL_ARCHS, get_config, smoke_config
     from repro_torch.launch.serve import grow_cache, prefill, serve
-    from repro_torch.models import decode_step, forward, init_params
+    from repro_torch.models import (decode_step, forward, init_cache,
+                                    init_params)
+    from repro_torch.checkpoint import latest_step, restore_checkpoint
+    from repro_torch.checkpoint.checkpointer import flatten
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.optim import adamw_init, constant, cosine_with_warmup
+    from repro_torch.runtime import (FaultTolerantRunner, RunnerConfig,
+                                     SimulatedFailure)
 
     return SimpleNamespace(**{k: v for k, v in locals().items()})
 
@@ -2447,8 +2882,11 @@ def main() -> None:
                              "the incremental path")
     serving = serving_path(P, ds, modules, full_acc)
     lm = lm_serve_path(P)
+    lm_pattern = lm_pattern_serve_path(P)
+    lm_train = lm_train_path(P)
     launches = {k: n + presampled[k] + tuned[k] + incremental[k] + serving[k]
-                + lm[k] for k, n in launches.items()}
+                + lm[k] + lm_pattern[k] + lm_train[k]
+                for k, n in launches.items()}
 
     errs["fused_layer_int8"] = []
     int8_layers(P, ds, device, errs)

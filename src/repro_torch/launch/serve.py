@@ -20,7 +20,7 @@ from repro_torch._device import resolve_device
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.models import decode_step, forward, init_params
 from repro_torch.models.attention import quantize_kv
-from repro_torch.models.lm import CACHE_SEQ_AXIS, require_uniform
+from repro_torch.models.lm import CACHE_SEQ_AXIS
 
 
 @dataclass
@@ -34,27 +34,53 @@ class ServeStats:
         return self.tokens / max(self.decode_s, 1e-9)
 
 
-def grow_cache(cache: dict, S_max: int) -> dict:
-    """A prefill cache with each entry's sequence axis (by name, MLA's
-    latents too) zero-padded to ``S_max`` positions."""
+def _grow(a: torch.Tensor, axis: int, S_max: int) -> torch.Tensor:
+    shape = list(a.shape)
+    shape[axis] = S_max
+    out = a.new_zeros(shape)
+    out.narrow(axis, 0, a.shape[axis]).copy_(a)
+    return out
+
+
+def grow_cache(cache, S_max: int):
+    """A prefill cache with every attention entry's sequence axis (by
+    name, ``lm.CACHE_SEQ_AXIS``: K/V and their scales, MLA's latents,
+    Zamba2's ``groups.k``/``v`` and a pattern's ``blocks[i].k``/``v``)
+    zero-padded to ``S_max`` positions; recurrent states and conv caches
+    are kept as they are."""
+    if isinstance(cache, list):
+        return [grow_cache(c, S_max) for c in cache]
     out = {}
     for name, a in cache.items():
-        axis = CACHE_SEQ_AXIS[name]
-        shape = list(a.shape)
-        shape[axis] = S_max
-        out[name] = a.new_zeros(shape)
-        out[name].narrow(axis, 0, a.shape[axis]).copy_(a)
+        if isinstance(a, (dict, list)):
+            out[name] = grow_cache(a, S_max)
+        elif name in CACHE_SEQ_AXIS:
+            out[name] = _grow(a, CACHE_SEQ_AXIS[name], S_max)
+        else:
+            out[name] = a
     return out
+
+
+def check_cache_layout(cfg) -> None:
+    """Refuse the int8 KV cache where the cache has no int8 layout (the
+    reference fails on MLA and serves the pattern families in bfloat16
+    without saying so)."""
+    if cfg.mla is not None and cfg.kv_quant_bits:
+        raise ValueError(f"{cfg.name}: the int8 KV cache covers K/V "
+                         "caches; MLA's latent cache has no int8 layout")
+    if cfg.block_pattern is not None and cfg.kv_quant_bits:
+        raise ValueError(f"{cfg.name}: the int8 KV cache covers the uniform "
+                         "K/V caches; the pattern families' caches (shared "
+                         "attention, recurrent states) have no int8 layout")
 
 
 def prefill(cfg, model, tokens: torch.Tensor, S_max: int):
     """Run the prompt ``tokens`` [B,P] and seed a decode cache of ``S_max``
     positions (int8 with scales when ``cfg.kv_quant_bits`` is set).
     Returns (logits float32 [B,P,V], cache)."""
-    if cfg.mla is not None and cfg.kv_quant_bits:
-        raise ValueError(f"{cfg.name}: the int8 KV cache covers K/V "
-                         "caches; MLA's latent cache has no int8 layout")
-    logits, _, cache = forward(model, cfg, tokens=tokens, want_cache=True)
+    check_cache_layout(cfg)
+    logits, _, cache = forward(model, cfg, tokens=tokens, want_cache=True,
+                               remat=False)
     cache = grow_cache(cache, S_max)
     if cfg.kv_quant_bits:
         # prefill emits bfloat16 K/V; quantize it into the int8 layout
@@ -69,7 +95,7 @@ def serve(cfg, model, prompts: np.ndarray, gen_len: int, *, device=None):
     (default ``"cuda"``; the model is moved there).  Returns (generated
     [B, gen_len] numpy int32, stats); the tokens stay on the device until
     the end, and each clock is read after the device has finished."""
-    require_uniform(cfg)
+    check_cache_layout(cfg)
     device = resolve_device(device)
     model = model.to(device)
 

@@ -19,14 +19,20 @@ from torch import nn
 
 class ParamTree(nn.Module):
     """Nested parameters from a tree of tensors: a mapping becomes a
-    submodule, a list a ``ModuleList``, a tensor a parameter that takes no
-    gradient (the LM path here serves; it does not train)."""
+    submodule, a list of mappings a ``ModuleList``, a list of tensors a
+    ``ParameterList``, a tensor a parameter that takes no gradient
+    (training substitutes its own tensors through
+    ``torch.func.functional_call``)."""
 
     def __init__(self, tree: Mapping):
         super().__init__()
         for name, value in tree.items():
             if isinstance(value, Mapping):
                 self.add_module(name, ParamTree(value))
+            elif isinstance(value, (list, tuple)) and value and all(
+                    isinstance(v, torch.Tensor) for v in value):
+                self.add_module(name, nn.ParameterList(
+                    nn.Parameter(v, requires_grad=False) for v in value))
             elif isinstance(value, (list, tuple)):
                 self.add_module(name, nn.ModuleList(ParamTree(v)
                                                     for v in value))

@@ -527,3 +527,90 @@ def test_lm_serve_on_the_card_equals_the_cpu(cuda):
             w, cache = decode_step(host, cfg, cache, tokens=tok,
                                    cache_len=8 + i)
             torch.testing.assert_close(g.cpu(), w, rtol=2e-3, atol=2e-3)
+
+
+def test_lm_pattern_serve_on_the_card_equals_the_cpu(cuda):
+    """The pattern families' smoke configs in float32 on one set of
+    weights: xLSTM (also with an sLSTM block) and Zamba2 (also with a
+    tail, and with AES-KV at W = 8 on its shared attention) served to
+    equal greedy tokens on ``cuda`` and on the CPU; each decode step's
+    logits, from the CPU's cache, to 2e-3 (the bfloat16 conv and K/V
+    caches, the reference's decode tolerance)."""
+    import copy
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.launch.serve import prefill, serve
+    from repro_torch.models import decode_step, init_params
+
+    def to(tree, device):
+        if isinstance(tree, dict):
+            return {k: to(v, device) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, device) for v in tree]
+        return tree.to(device, copy=True)
+
+    for arch, opts in (
+            ("xlstm-350m", {}),
+            ("xlstm-350m", {"block_pattern": ("mlstm", "mlstm", "mlstm",
+                                              "slstm")}),
+            ("zamba2-7b", {}), ("zamba2-7b", {"num_layers": 8}),
+            ("zamba2-7b", {"aes_kv_width": 8})):
+        cfg = smoke_config(get_config(arch)).with_options(
+            param_dtype="float32", **opts)
+        host = init_params(cfg, 0, device="cpu")
+        card = copy.deepcopy(host).to(cuda)
+        p = np.random.default_rng(0).integers(1, cfg.vocab_size, (4, 8)
+                                              ).astype(np.int32)
+        want, _ = serve(cfg, host, p, 8, device="cpu")
+        got, _ = serve(cfg, card, p, 8, device=cuda)
+        np.testing.assert_array_equal(got, want, err_msg=f"{arch} {opts}")
+        _, cache = prefill(cfg, host, torch.from_numpy(p), 16)
+        for i in range(4):
+            tok = torch.from_numpy(want[:, i:i + 1].copy())
+            g, _ = decode_step(card, cfg, to(cache, cuda),
+                               tokens=tok.to(cuda), cache_len=8 + i)
+            w, cache = decode_step(host, cfg, cache, tokens=tok,
+                                   cache_len=8 + i)
+            torch.testing.assert_close(g.cpu(), w, rtol=2e-3, atol=2e-3)
+
+
+def test_lm_train_on_the_card_matches_the_cpu(cuda):
+    """3 training steps (``launch.train.make_train_step``: AdamW, weight
+    decay 0.1, remat on) of float32 smoke configs on ``cuda`` and on the
+    CPU from one set of weights and batches: the first loss to 1e-5
+    relative, the later ones to 1e-3 (AdamW's first steps move each
+    weight by about lr times the sign of its gradient, so a gradient
+    that rounds to the other sign moves a weight by 2 lr); parameters
+    updated in their dtypes."""
+    import copy
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init, cosine_with_warmup
+
+    for arch in ("tinyllama-1.1b", "mixtral-8x22b", "xlstm-350m",
+                 "zamba2-7b"):
+        cfg = smoke_config(get_config(arch)).with_options(
+            param_dtype="float32")
+        pipe = make_pipeline(cfg, seq_len=32, global_batch=4)
+        sched = cosine_with_warmup(3e-4, 1, 3)
+        losses = {}
+        host = init_params(cfg, 0, device="cpu")
+        for device in ("cpu", cuda):
+            model = copy.deepcopy(host).to(device)
+            params = {k: p.detach() for k, p in model.named_parameters()}
+            state = (params, adamw_init(params))
+            step = make_train_step(cfg, model, sched)
+            losses[str(device)] = []
+            for i in range(3):
+                batch = {k: torch.as_tensor(v, device=device)
+                         for k, v in pipe.batch_at(i).items()}
+                state, metrics = step(state, batch)
+                losses[str(device)].append(float(metrics["loss"]))
+            assert all(p.device.type == torch.device(device).type
+                       for p in state[0].values())
+        want, got = losses["cpu"], losses[str(cuda)]
+        np.testing.assert_allclose(got[0], want[0], rtol=1e-5, err_msg=arch)
+        np.testing.assert_allclose(got, want, rtol=1e-3, err_msg=arch)

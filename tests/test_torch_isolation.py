@@ -1,11 +1,14 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` load neither
 JAX nor any module of the JAX package (the optimizer, the configs, the
 example modules, incremental plan maintenance, serving, the whole of
-``obs``, the LM configs, models and serving driver included), the port's
-entry points default to the card (and raise without one instead of
-running on the CPU: ``evaluate``,
+``obs``, the LM configs, models and serving driver included, and the LM
+training substrate: ``data``, ``checkpoint``, ``runtime``,
+``launch.train``, ``models.ssm``, ``models.xlstm``,
+``examples.lm_train``), the port's entry points default to the card
+(and raise without one instead of running on the CPU: ``evaluate``,
 ``make_dataset``, ``train_model``, ``make_presampled_agg``,
-``GNNServer``, the LM's ``init_params`` and ``serve``), and the
+``GNNServer``, the LM's ``init_params`` and ``serve``, also for the
+pattern archs, and ``launch.train.main``), and the
 smoke script refuses to report a result without a card or without the
 repository around it."""
 from __future__ import annotations
@@ -46,7 +49,14 @@ for name in ("repro_torch.optim.adamw", "repro_torch.configs.gnn_paper",
              "repro_torch.models.layers", "repro_torch.models.attention",
              "repro_torch.models.moe", "repro_torch.models.lm",
              "repro_torch.models.convert", "repro_torch.launch.serve",
-             "repro_torch.examples.aes_kv_serving"):
+             "repro_torch.examples.aes_kv_serving",
+             "repro_torch.models.ssm", "repro_torch.models.xlstm",
+             "repro_torch.optim.schedules",
+             "repro_torch.optim.grad_compression",
+             "repro_torch.data.pipeline",
+             "repro_torch.checkpoint.checkpointer",
+             "repro_torch.runtime.fault_tolerance",
+             "repro_torch.launch.train", "repro_torch.examples.lm_train"):
     assert name in names, name
 print("MODULES", len(names))
 
@@ -71,8 +81,12 @@ else:
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.launch.serve import serve
     from repro_torch.models import init_params
+    from repro_torch.launch.train import main as train_main
     lm_cfg = smoke_config(get_config("qwen2-7b"))
     lm = init_params(lm_cfg, device="cpu")
+    zamba = smoke_config(get_config("zamba2-7b"))
+    xl = smoke_config(get_config("xlstm-350m"))
+    xl_lm = init_params(xl, device="cpu")
     from repro_torch.serving import GNNServer
     for name, call in (
             ("TRAIN", lambda: train_model(ds, "gcn", hidden=8, epochs=1)),
@@ -81,7 +95,11 @@ else:
             ("SERVER", lambda: GNNServer(ds.gcn_adj, ds.features)),
             ("LM_INIT", lambda: init_params(lm_cfg)),
             ("LM_SERVE", lambda: serve(lm_cfg, lm, np.ones((1, 4), np.int32),
-                                       2))):
+                                       2)),
+            ("PATTERN_INIT", lambda: init_params(zamba)),
+            ("PATTERN_SERVE", lambda: serve(xl, xl_lm,
+                                            np.ones((1, 4), np.int32), 2)),
+            ("TRAIN_MAIN", lambda: train_main(["--smoke", "--steps", "1"]))):
         try:
             call()
         except RuntimeError as exc:
@@ -104,7 +122,8 @@ def test_port_loads_no_jax_and_defaults_to_the_card():
     assert n_modules >= 15
     if "EVALUATED_ON_CUDA" not in out.stdout:
         for what in ("", "DATASET_", "TRAIN_", "PRESAMPLED_", "SERVER_",
-                     "LM_INIT_", "LM_SERVE_"):
+                     "LM_INIT_", "LM_SERVE_", "PATTERN_INIT_",
+                     "PATTERN_SERVE_", "TRAIN_MAIN_"):
             assert what + "RAISED_WITHOUT_CARD" in out.stdout, what
 
 

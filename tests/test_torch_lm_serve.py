@@ -71,18 +71,26 @@ def test_deepseek_serve_matches_teacher_forced_argmax():
 
 @pytest.mark.parametrize("arch", ["xlstm-350m", "zamba2-7b"])
 def test_pattern_families_raise_not_implemented(arch):
-    """The pattern families are the next slice: every entry point refuses
-    them instead of running something else."""
+    """The pattern families, which every entry point once refused with
+    ``NotImplementedError``, now run through each of them: ``init_params``,
+    ``init_cache``, ``forward``, ``decode_step``, ``serve`` and the
+    command line (tests/test_torch_lm_pattern.py holds them to the
+    reference)."""
     cfg = smoke_config(get_config(arch))
-    calls = (lambda: init_params(cfg, device=CPU),
-             lambda: init_cache(cfg, 2, 8, device=CPU),
-             lambda: forward(None, cfg, tokens=torch.zeros(1, 2)),
-             lambda: decode_step(None, cfg, {}, cache_len=0),
-             lambda: serve(cfg, None, prompts(cfg, 1, 4), 2, device=CPU),
-             lambda: main(["--arch", arch, "--smoke", "--device", "cpu"]))
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="next slice"):
-            call()
+    model = init_params(cfg, device=CPU)
+    cache = init_cache(cfg, 1, 4, device=CPU)
+    logits, _, _ = forward(model, cfg, tokens=torch.zeros(1, 4,
+                                                          dtype=torch.int32))
+    assert logits.shape == (1, 4, cfg.vocab_size)
+    logits, _ = decode_step(model, cfg, cache,
+                            tokens=torch.zeros(1, 1, dtype=torch.int32),
+                            cache_len=0)
+    assert torch.isfinite(logits).all()
+    gen, _ = serve(cfg, model, prompts(cfg, 1, 4), 2, device=CPU)
+    assert gen.shape == (1, 2)
+    assert main(["--arch", arch, "--smoke", "--requests", "1",
+                 "--prompt-len", "4", "--gen", "2",
+                 "--device", "cpu"]).tokens == 2
 
 
 def test_refusals():
