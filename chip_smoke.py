@@ -102,6 +102,28 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    the single-device tuned call and within 0.001 of the ``torch`` twins;
    a ``window`` edge update held to the CPU merge's edges and to cold
    tunes of the shards it touched; peak device memory.
+   Then sharded serving in spmd mode, its launch counts likewise:
+   ``GNNServer(mode="spmd")`` (the 4 shards stacked on the card, one
+   ``block_ell_spmm`` launch a global width bucket, at most 3), f32 and
+   int8, each on a fresh disk ``PlanCache`` over the loop servers'
+   directory (4 disk hits: the same plans), its resident and dense F = 64
+   results bit-equal (``torch.equal``) to a loop server's on those plans;
+   the launches of one pass (int8: one ``dequantize`` a shard, then the
+   float launches); a pass's device ms (CUDA events around passes queued
+   behind a spin of the card) and host ms beside loop mode's, and its
+   dispatch under ``set_sync_debug_mode("error")``; f32 also a
+   ``ServingRuntime`` at the synchronous baseline's rps (64 requests, half
+   dense) with every result equal to the synchronous one, and a
+   ``window`` edge update equal to loop mode's after the same update; a
+   degree-sorted plan refused (``serving_spmd*`` lines).
+   Then the command lines (``cli_smoke`` lines), each in a process of its
+   own on the card as ``python -m`` runs it, with the launches it made:
+   ``repro_torch.exec --smoke --json`` (the fused layers against the
+   unfused pipeline: ``aes_sample``, ``ell_spmm``, ``fused_layer``),
+   ``repro_torch.tuning.autotune --smoke --json``, also with
+   ``--granularity block`` and ``--shards 4`` (``block_ell_spmm``), and
+   ``repro_torch.tuning.calibration --smoke --json``; each must exit 0
+   and end with ``smoke: OK``.
    Then LM serving, its launch counts set to 0 just before it and read
    just after (it launches none of the six kernels): Qwen2-7B
    (``get_config("qwen2-7b")`` unreduced, bfloat16, weights drawn on the
@@ -1170,6 +1192,17 @@ SERVING_RATES = (0.5, 1.0, 2.0, 4.0)
 SERVING_MAX_BATCH, SERVING_MAX_DELAY_MS, SERVING_QUEUE_DEPTH = 8, 2.0, 32
 
 
+def _uncounted(P, compared: dict, fn):
+    """``fn()``, its launches added to ``compared``, which a path leaves out
+    of its own count: they compare or time, they do not serve."""
+    before = P.ops.launch_counts()
+    out = fn()
+    P.torch.cuda.synchronize()
+    for k, v in P.ops.launch_counts().items():
+        compared[k] = compared.get(k, 0) + v - before[k]
+    return out
+
+
 def _torch_twins_of(P, server, x):
     """``server``'s shard plans run one by one on ``x`` (None: the resident
     operands) through their ``torch`` twins (the blocked kernel's plain
@@ -1363,16 +1396,15 @@ def _runtime_line(P, server, rate, pool, expected) -> dict:
     }
 
 
-def serving_path(P, ds, modules, full_acc) -> dict:
+def serving_path(P, ds, modules, full_acc, cache_root: Path) -> dict:
     """Sharded serving on the card over reddit's ``gcn_adj``: a 4-shard
     ``GNNServer`` (loop mode, ``tune_blocked``'s defaults; f32 and int8,
-    each on a fresh disk ``PlanCache``) held against its plans' ``torch``
-    twins, the warm restart, the synchronous baseline and the open-loop
-    runtime sweep, ``evaluate(strategy="auto", shards=4)`` for the trained
-    models, and an edge update.  Returns the launches of the run (counts
-    set to 0 at its start), less those made only to compare."""
-    import tempfile
-
+    each on a fresh disk ``PlanCache`` under ``cache_root``) held against
+    its plans' ``torch`` twins, the warm restart, the synchronous baseline
+    and the open-loop runtime sweep, ``evaluate(strategy="auto",
+    shards=4)`` for the trained models, and an edge update.  Returns the
+    launches of the run (counts set to 0 at its start), less those made
+    only to compare."""
     torch = P.torch
     adj, x = ds.gcn_adj, ds.features
     n = adj.num_rows
@@ -1380,28 +1412,18 @@ def serving_path(P, ds, modules, full_acc) -> dict:
     dense = torch.randn((n, SERVING_DENSE_F), generator=gen,
                         device=adj.device)
     failures, compared = [], {}
-
-    def comparing(fn):
-        """``fn()``, its launches left out of the path's: they compare or
-        time, they do not serve."""
-        before = P.ops.launch_counts()
-        out = fn()
-        torch.cuda.synchronize()
-        for k, v in P.ops.launch_counts().items():
-            compared[k] = compared.get(k, 0) + v - before[k]
-        return out
+    comparing = functools.partial(_uncounted, P, compared)
 
     def check(ok, what):
         if not ok:
             failures.append(what)
 
-    tmp = tempfile.TemporaryDirectory()
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     P.ops.reset_launch_counts()                   # the path starts here
     servers, tune_s = {}, {}
     for name, quant in (("f32", None), ("int8", 8)):
-        cache_dir = str(Path(tmp.name) / name)
+        cache_dir = str(cache_root / name)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         server = P.GNNServer(adj, x, num_shards=SERVING_SHARDS, quant=quant,
@@ -1461,7 +1483,7 @@ def serving_path(P, ds, modules, full_acc) -> dict:
                          for s in q_server.shards]})
 
     # warm restart: a fresh cache on the f32 directory re-tunes nothing
-    warm = P.PlanCache(str(Path(tmp.name) / "f32"))
+    warm = P.PlanCache(str(cache_root / "f32"))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     restarted = P.GNNServer(adj, x, num_shards=SERVING_SHARDS, cache=warm)
@@ -1578,7 +1600,6 @@ def serving_path(P, ds, modules, full_acc) -> dict:
          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
          "wall_s": time.perf_counter() - t_phase})
     del servers, server
-    tmp.cleanup()
     if failures:
         raise AssertionError(f"serving: {failures} failed (the serving "
                              "lines above say which check)")
@@ -1586,6 +1607,281 @@ def serving_path(P, ds, modules, full_acc) -> dict:
         raise AssertionError("kernel block_ell_spmm was not launched on "
                              "the serving path")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4: sharded serving in spmd mode, then the command lines
+# ---------------------------------------------------------------------------
+
+#: the most width buckets, so blocked launches, of one spmd pass
+SPMD_MAX_BUCKETS = 3
+#: cycles the card spins before a timed batch of passes, so that the host
+#: has queued the whole batch before the first pass starts (~0.1 s)
+QUEUE_AHEAD_CYCLES = 200_000_000
+
+
+def queued_device_ms(torch, fn, batch=TIMING_BATCH,
+                     reps=TIMING_REPS) -> float:
+    """Device time of one call, in ms, for calls whose host time exceeds
+    their device time (a serving pass): the card spins first, the host
+    queues ``batch`` calls behind the spin between one pair of CUDA events,
+    so the events time the device work alone; the median of ``reps``."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(batch):
+            fn()
+        end.record()
+        queued = not start.query()        # the spin outlasted the queueing
+        end.synchronize()
+        if not queued:
+            raise AssertionError("the host queued the batch slower than the "
+                                 "card spun: raise QUEUE_AHEAD_CYCLES")
+        times.append(start.elapsed_time(end) / batch)
+    return statistics.median(times)
+
+
+def serving_spmd_path(P, ds, cache_root: Path) -> dict:
+    """``GNNServer(mode="spmd")`` on the card over reddit's ``gcn_adj``: 4
+    shards stacked on the card, f32 and int8, each built on a fresh disk
+    ``PlanCache`` over the loop servers' directory under ``cache_root`` (4
+    disk hits, so the plans the serving phase tuned), held bit for bit
+    against a loop server on the same plans (resident and a dense F = 64
+    operand); the launches of one pass; a pass's device and host ms beside
+    loop mode's; ``ServingRuntime`` at the synchronous baseline's rps with
+    every result equal to the synchronous one (f32); a ``window`` edge
+    update equal to loop mode's after the same update (f32); a
+    degree-sorted plan refused.  Returns the launches of the run (counts
+    set to 0 at its start), less those made only to compare or time."""
+    torch = P.torch
+    adj, x = ds.gcn_adj, ds.features
+    n = adj.num_rows
+    gen = torch.Generator(device=adj.device).manual_seed(1)
+    dense = torch.randn((n, SERVING_DENSE_F), generator=gen,
+                        device=adj.device)
+    failures, compared = [], {}
+    comparing = functools.partial(_uncounted, P, compared)
+
+    def check(ok, what):
+        if not ok:
+            failures.append(what)
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    P.ops.reset_launch_counts()                   # the path starts here
+    for name, quant in (("f32", None), ("int8", 8)):
+        cache_dir = str(cache_root / name)
+        cache = P.PlanCache(cache_dir)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        spmd = P.GNNServer(adj, x, num_shards=SERVING_SHARDS, mode="spmd",
+                           quant=quant, cache=cache,
+                           max_buckets=SPMD_MAX_BUCKETS)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        loop_cache = P.PlanCache(cache_dir)
+        loop = comparing(lambda: P.GNNServer(
+            adj, x, num_shards=SERVING_SHARDS, quant=quant,
+            cache=loop_cache))
+        bundle = spmd._bundle
+        check(cache.stats.disk_hits == loop_cache.stats.disk_hits
+              == SERVING_SHARDS and cache.stats.misses == 0
+              and loop_cache.stats.misses == 0, f"same plans {name}")
+        check(bundle._quant == (quant is not None), f"resident {name}")
+        equal, errs, per_pass = {}, {}, {}
+        for label, op in (("resident", None), ("dense_f64", dense)):
+            got = spmd.aggregate(op)
+            want = comparing(lambda: loop.aggregate(op))
+            equal[label] = bool(torch.equal(got, want))
+            errs[label] = float((got - want).abs().max())
+            check(equal[label] and bool(torch.isfinite(got).all()),
+                  f"spmd vs loop {name} {label}")
+            per_pass[label] = _pass_launches(P, spmd, op)
+            block = per_pass[label].get("block_ell_spmm", 0)
+            deq = per_pass[label].get("dequantize", 0)
+            check(1 <= block <= SPMD_MAX_BUCKETS
+                  and deq == (SERVING_SHARDS if quant and op is None else 0),
+                  f"launches a pass {name} {label}")
+        loop_per_pass = comparing(lambda: _pass_launches(P, loop))
+        times = comparing(lambda: {
+            mode: {label: {"device_ms": queued_device_ms(
+                               torch, lambda: srv.run_batch([op])),
+                           "host_ms": host_ms(
+                               torch, lambda: srv.run_batch([op]))}
+                   for label, op in (("resident", None),
+                                     ("dense_f64", dense))}
+            for mode, srv in (("spmd", spmd), ("loop", loop))})
+        dispatch = comparing(
+            lambda: _dispatch_vs_completion(P, spmd, [None]))
+        log({"phase": "serving_spmd", "plans": name,
+             "build_s": build_s, "disk_hits": cache.stats.disk_hits,
+             "buckets": [[w, len(ids)] for w, ids in bundle.buckets],
+             "stacked_blocks": bundle.bell.num_blocks,
+             "stacked_rows": bundle.bell.num_rows,
+             "operand_rows": bundle.gcap * SERVING_SHARDS,
+             "resident_uint8": bundle._quant,
+             "equal_to_loop": equal, "vs_loop_max_abs_err": errs,
+             "launches_a_pass": per_pass,
+             "loop_launches_a_pass": loop_per_pass,
+             "pass_ms": times, "dispatch_vs_completion": dispatch})
+
+        if name == "f32":
+            base = P.sync_baseline(spmd, iters=16, warmup=2)
+            pool = [torch.randn((n, SERVING_DENSE_F), generator=gen,
+                                device=adj.device)
+                    for _ in range(SERVING_POOL)]
+            expected = {None: spmd.aggregate()}
+            expected.update({id(op): spmd.aggregate(op) for op in pool})
+            line = _runtime_line(P, spmd, base["rps"], pool, expected)
+            log({"phase": "serving_spmd_runtime", "sync_baseline": base,
+                 "rate_x_baseline": 1.0, "max_batch": SERVING_MAX_BATCH,
+                 "max_delay_ms": SERVING_MAX_DELAY_MS,
+                 "queue_depth": SERVING_QUEUE_DEPTH, **line})
+            check(line["results_unequal_to_sync"] == 0
+                  and line["completed"] >= 1 and line["failed"] == 0,
+                  "spmd runtime")
+            del pool, expected
+
+            # the same window delta on both servers
+            block_rows = inspect.signature(P.tune_blocked).parameters[
+                "block_rows"].default
+            adds, dels = make_deltas(P, adj, block_rows)["window"]
+            loop_report = comparing(
+                lambda: loop.apply_edge_updates(adds, dels))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            report = spmd.apply_edge_updates(adds, dels)
+            torch.cuda.synchronize()
+            update_s = time.perf_counter() - t0
+            upd_equal = {}
+            for label, op in (("resident", None), ("dense_f64", dense)):
+                got = spmd.aggregate(op)
+                upd_equal[label] = bool(torch.equal(
+                    got, comparing(lambda: loop.aggregate(op))))
+            same_route = all(report[k] == loop_report[k] for k in
+                             ("patched", "retuned", "untouched"))
+            log({"phase": "serving_spmd_edge_update",
+                 "additions": len(adds), "deletions": len(dels),
+                 **{k: report[k] for k in ("patched", "retuned",
+                                           "untouched", "halo_shrunk")},
+                 "apply_edge_updates_s": update_s,
+                 "same_routing_as_loop": same_route,
+                 "equal_to_loop": upd_equal})
+            check(same_route and all(upd_equal.values()),
+                  "spmd edge update")
+        del spmd, loop, bundle
+
+    # a degree-sorted plan is refused, as in the reference package
+    small = P.make_dataset("cora", scale=0.1, seed=0, device=adj.device)
+    try:
+        comparing(lambda: P.GNNServer(
+            small.gcn_adj, small.features, num_shards=SERVING_SHARDS,
+            mode="spmd", cache=P.PlanCache(),
+            tune_kwargs={"layout": "degree_sorted", "measure_plan": False,
+                         "measure_buckets": False}))
+        refused = None
+    except ValueError as exc:
+        refused = str(exc)
+    log({"phase": "serving_spmd_refusal", "degree_sorted": refused})
+    check(refused is not None and "degree-sorted" in refused,
+          "permuted plan refused")
+
+    launches = {k: v - compared.get(k, 0)         # ... and ends here
+                for k, v in P.ops.launch_counts().items()}
+    log({"phase": "serving_spmd_launches", "launches": launches,
+         "comparison_and_timing_launches": compared,
+         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "wall_s": time.perf_counter() - t_phase})
+    if failures:
+        raise AssertionError(f"serving_spmd: {failures} failed (the "
+                             "serving_spmd lines above say which check)")
+    for name in ("block_ell_spmm", "dequantize"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 "spmd serving path")
+    return launches
+
+
+def _pass_launches(P, server, op=None) -> dict:
+    """Kernel launches of one pass of ``server`` over ``op`` (None: the
+    resident operand)."""
+    P.torch.cuda.synchronize()
+    before = P.ops.launch_counts()
+    server.run_batch([op])
+    P.torch.cuda.synchronize()
+    return {k: v - before[k] for k, v in P.ops.launch_counts().items()
+            if v - before[k]}
+
+
+#: the command lines of the port, each run as ``python -m`` runs it: the
+#: module, its arguments after ``--smoke --json``, and the kernels it must
+#: launch (the graph tune times whichever candidates rank first, so its
+#: kernels are logged, not required)
+CLI_SMOKES = (
+    ("repro_torch.exec", (), ("aes_sample", "ell_spmm", "fused_layer")),
+    ("repro_torch.tuning.autotune", (), ()),
+    ("repro_torch.tuning.autotune", ("--granularity", "block"),
+     ("block_ell_spmm",)),
+    ("repro_torch.tuning.autotune", ("--shards", "4"), ("block_ell_spmm",)),
+    ("repro_torch.tuning.calibration", (), ()),
+)
+#: runs ``sys.argv[1]`` as ``python -m`` does (``runpy``), with the rest as
+#: its arguments, then prints the kernel launches it made to stderr
+_CLI_RUNNER = r"""
+import json, runpy, sys
+from repro_torch.kernels import ops
+sys.argv = sys.argv[1:]
+try:
+    runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+finally:
+    print("LAUNCHES " + json.dumps(ops.launch_counts()), file=sys.stderr)
+"""
+
+
+def cli_smokes(P) -> dict:
+    """Each command line's ``--smoke --json`` in a process of its own on the
+    card (``--device`` left at its default, ``cuda``): it must exit 0, end
+    with ``smoke: OK`` and launch the kernels it drives.  Returns the
+    launches of all of them."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    env.pop("REPRO_PLAN_CACHE_DIR", None)
+    total = {k: 0 for k in P.ops.KERNELS}
+    failures = []
+    for module, extra, drives in CLI_SMOKES:
+        argv = ["--smoke", "--json", *extra]
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-c", _CLI_RUNNER, module,
+                              *argv], cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        lines = out.stdout.splitlines()
+        reports = [json.loads(s) for s in lines if s.startswith("{")]
+        counted = [s for s in out.stderr.splitlines()
+                   if s.startswith("LAUNCHES ")]
+        launches = json.loads(counted[-1][9:]) if counted else {}
+        ok = (out.returncode == 0 and bool(lines)
+              and lines[-1] == "smoke: OK"
+              and all(launches.get(k, 0) > 0 for k in drives))
+        log({"phase": "cli_smoke",
+             "command": " ".join(["python -m", module, *argv]),
+             "rc": out.returncode, "ok": ok, "seconds": seconds,
+             "report": reports[0] if reports else None,
+             "launches": {k: v for k, v in launches.items() if v}})
+        if not ok:
+            failures.append(module + " " + " ".join(argv))
+            print(out.stderr[-4000:], file=sys.stderr)
+        for k, v in launches.items():
+            total[k] += v
+    if failures:
+        raise AssertionError(f"cli_smokes: {failures} failed")
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -2880,12 +3176,17 @@ def main() -> None:
     if incremental["block_ell_spmm"] <= 0:
         raise AssertionError("kernel block_ell_spmm was not launched on "
                              "the incremental path")
-    serving = serving_path(P, ds, modules, full_acc)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as cache_root:
+        serving = serving_path(P, ds, modules, full_acc, Path(cache_root))
+        spmd = serving_spmd_path(P, ds, Path(cache_root))
+    clis = cli_smokes(P)
     lm = lm_serve_path(P)
     lm_pattern = lm_pattern_serve_path(P)
     lm_train = lm_train_path(P)
     launches = {k: n + presampled[k] + tuned[k] + incremental[k] + serving[k]
-                + lm[k] + lm_pattern[k] + lm_train[k]
+                + spmd[k] + clis[k] + lm[k] + lm_pattern[k] + lm_train[k]
                 for k, n in launches.items()}
 
     errs["fused_layer_int8"] = []

@@ -27,13 +27,6 @@ from repro_torch.core.sampling import STRATEGIES
 BACKENDS = ("torch", "cuda", "cuda_fused")
 
 
-def not_ported(what: str, slice_: str = "serving"):
-    """The error for an option a later slice of the port brings."""
-    return NotImplementedError(
-        f"{what} belongs to the {slice_} slice of the port and is not "
-        "ported yet (ROADMAP.md queue 1)")
-
-
 def sample(csr: CSR, sh_width: int, strategy: str = "aes",
            backend: str = "torch") -> ELL:
     """Sampling pre-pass producing the ELL operand (the AES pass runs the

@@ -1,9 +1,8 @@
-"""``repro_torch.distributed`` — device placement for sharded serving.
+"""``repro_torch.distributed`` — device placement for sharded serving:
+:func:`shard_devices` (the launch loop's round robin) and
+:func:`serving_mesh` (the stacked pass's one-device layout over the
+:data:`SHARD_AXIS` axis)."""
+from repro_torch.distributed.serving import (SHARD_AXIS, ServingMesh,
+                                             serving_mesh, shard_devices)
 
-Only the launch-loop half of the reference package's
-``repro.distributed.serving`` is ported: :func:`shard_devices`.  The SPMD
-mesh (``serving_mesh``) comes with the multi-card slice of the port.
-"""
-from repro_torch.distributed.serving import shard_devices
-
-__all__ = ["shard_devices"]
+__all__ = ["SHARD_AXIS", "ServingMesh", "serving_mesh", "shard_devices"]

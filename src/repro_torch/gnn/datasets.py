@@ -144,3 +144,11 @@ def make_dataset(name: str, scale: float = 0.02, seed: int = 0,
         train_mask=torch.from_numpy(train_mask),
         test_mask=torch.from_numpy(~train_mask),
     ).to(device)
+
+
+def table2_stats(name: str) -> dict:
+    """Published Table-2 statistics of ``name`` (nodes, average degree and
+    the edge count they imply), with no graph built."""
+    s = SYNTHETIC_DATASETS[name]
+    return {"nodes": s.nodes, "avg_degree": s.avg_degree,
+            "edges": int(s.nodes * s.avg_degree)}

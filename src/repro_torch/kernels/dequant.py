@@ -32,8 +32,8 @@ def dequantize_plain(q, scale, x_min):
     return q.to(torch.float32) * scale + x_min
 
 
-def dequantize(q: torch.Tensor, scale, x_min, *, bits: int = 8
-               ) -> torch.Tensor:
+def dequantize(q: torch.Tensor, scale, x_min, *, bits: int = 8,
+               out: torch.Tensor | None = None) -> torch.Tensor:
     """Eq. 2 over a quantized matrix.
 
     Args:
@@ -41,9 +41,11 @@ def dequantize(q: torch.Tensor, scale, x_min, *, bits: int = 8
       scale / x_min: the affine constants, f32 scalar tensors (read by the
         kernel where they lie) or floats.
       bits: the source bit width, which must match ``q``'s dtype.
+      out: optional contiguous f32 ``[n, f]`` on ``q``'s device to write
+        into (a slice of a larger stack), else a new tensor.
 
-    Returns f32 ``[n, f]``.  CPU tensors run :func:`dequantize_plain`;
-    CUDA tensors launch the kernel.
+    Returns f32 ``[n, f]`` (``out`` when given).  CPU tensors run
+    :func:`dequantize_plain`; CUDA tensors launch the kernel.
     """
     req = _build.require
     req(q.dim() == 2 and q.dtype in _FUNCTIONS,
@@ -51,10 +53,17 @@ def dequantize(q: torch.Tensor, scale, x_min, *, bits: int = 8
     req(_BITS[q.dtype] == bits,
         f"bits={bits} does not match q's dtype {q.dtype}")
     req(q.is_contiguous(), "q must be contiguous")
+    if out is not None:
+        req(out.shape == q.shape and out.dtype == torch.float32
+            and out.device == q.device and out.is_contiguous(),
+            "out must be a contiguous f32 tensor shaped like q, on its "
+            "device")
     if _build.route(q) == "cpu":
-        return dequantize_plain(q, scale, x_min)
+        plain = dequantize_plain(q, scale, x_min)
+        return plain if out is None else out.copy_(plain)
 
-    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    if out is None:
+        out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     if q.numel() == 0:
         return out
     meta = _eq2_constants((scale, x_min), q.device)  # alive to the launch

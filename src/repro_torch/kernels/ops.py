@@ -152,14 +152,16 @@ def fused_layer_spmm(ell: ELL, b, w, bias, live_w=None, *, relu: bool = True,
         relu=relu, quantized_meta=quantized_meta)
 
 
-def dequantize(q, scale, x_min, *, bits: int = 8):
+def dequantize(q, scale, x_min, *, bits: int = 8, out=None):
     """Dequantization (paper Eq. 2): ``q * scale + x_min``.
 
     Args:
       q: quantized matrix uint8/uint16[n, f].
       scale / x_min: the affine dequant constants.
       bits: source bit width (8 or 16).
+      out: optional contiguous f32[n, f] to write into.
 
     Returns f32[n, f].
     """
-    return _dequant_mod.dequantize(q.contiguous(), scale, x_min, bits=bits)
+    return _dequant_mod.dequantize(q.contiguous(), scale, x_min, bits=bits,
+                                   out=out)

@@ -10,9 +10,10 @@ plans, the port of the reference package's ``repro.serving``.
     updates routed to the owning shards;
   * ``engine`` — :class:`GNNServer` with ``submit()``/``flush()``
     micro-batching, per-shard width-bucketed launches of the blocked
-    kernel (loop mode, double-buffered operand gathers), uint8 feature
-    dispatch when the plans are quantized, and the non-blocking
-    ``run_batch()`` dispatch path;
+    kernel (loop mode, double-buffered operand gathers) or one stacked
+    pass over every shard (spmd mode, one launch a global width bucket),
+    uint8 feature dispatch when the plans are quantized, and the
+    non-blocking ``run_batch()`` dispatch path;
   * ``runtime`` — :class:`ServingRuntime`: the async continuous-batching
     request loop (bounded queue with backpressure, size-or-deadline flush,
     two-slot pipeline on CUDA streams and events, graceful drain);

@@ -12,14 +12,21 @@ partition:
                                  (``block_ell_spmm`` on the card), concat
                                  the row outputs
 
-Execution is the reference package's loop mode: one launch per shard on a
-round-robin device assignment (``repro_torch.distributed.shard_devices``),
-with the *next* shard's operand gathered before the current shard's
-compute is consumed.  Shards may share a device — one card serves a
-4-shard layout, and the double buffering is then plain sequencing.  The
-reference's ``mode="spmd"`` (one ``shard_map`` program, one device per
-shard) belongs to the multi-card slice of the port and raises
-``NotImplementedError``.
+Two execution modes, the reference package's:
+
+  * ``mode="loop"`` — one launch per shard on a round-robin device
+    assignment (``repro_torch.distributed.shard_devices``), with the
+    *next* shard's operand gathered before the current shard's compute is
+    consumed.  Shards may share a device — one card serves a 4-shard
+    layout, and the double buffering is then plain sequencing.
+  * ``mode="spmd"`` — one pass over every shard at once.  The reference
+    runs one ``shard_map`` program over a ``("shards",)`` mesh, one device
+    per shard.  Here the shards are stacked on one device
+    (``repro_torch.distributed.serving_mesh``): their BlockELL blocks form
+    one BlockELL and their operands one ``[num_shards * gcap, F]`` matrix,
+    so a pass is one ``block_ell_spmm`` launch per *global* width bucket
+    (at most ``max_buckets``), where loop mode makes one per shard per
+    bucket (:class:`_SpmdBundle`).
 
 Micro-batching: ``submit()`` enqueues requests, ``flush()`` executes the
 whole queue in as few sharded passes as possible — SpMM is linear in the
@@ -41,9 +48,8 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.core.aes_spmm import not_ported
-from repro_torch.core.graph import CSR
-from repro_torch.distributed.serving import shard_devices
+from repro_torch.core.graph import CSR, BlockELL, partition_width_buckets
+from repro_torch.distributed.serving import serving_mesh, shard_devices
 from repro_torch.serving.partition import (concat_shard_outputs, halo_stats,
                                            partition_csr)
 from repro_torch.serving.plans import plan_shards
@@ -75,6 +81,152 @@ def _warm(plan: BlockedPlan) -> None:
     plan.inv_perm()
 
 
+def _stack_block_ells(bells, gcap: int) -> BlockELL:
+    """One BlockELL of every shard's blocks in shard order, over the
+    operand stack whose shard ``s`` starts at row ``s * gcap``: live slots
+    (``k < live_w`` of their row) get ``s * gcap`` added to their column,
+    dead slots keep ``(0, 0.0)``.  Its rows are all the blocks' rows,
+    padded ones included."""
+    dev, br = bells[0].val.device, bells[0].block_rows
+    widths = tuple(w for b in bells for w in b.widths)
+    blocks = torch.tensor([b.num_blocks for b in bells], device=dev)
+    val = torch.cat([b.val[:b.total_slots] for b in bells]
+                    + [bells[0].val.new_zeros(max(widths))])
+    col = torch.cat([b.col[:b.total_slots] for b in bells]
+                    + [bells[0].col.new_zeros(max(widths))])
+    live_w = torch.cat([b.live_w for b in bells])
+    # each slot's stacked row, its index k within the row, the row's shard
+    row_w = torch.tensor(widths, dtype=torch.int64,
+                         device=dev).repeat_interleave(br)
+    slot_row = torch.repeat_interleave(
+        torch.arange(row_w.numel(), device=dev), row_w)
+    k = torch.arange(slot_row.numel(), device=dev) \
+        - (torch.cumsum(row_w, 0) - row_w)[slot_row]
+    row_shard = torch.repeat_interleave(
+        torch.arange(len(bells), device=dev), blocks * br)
+    n = slot_row.numel()
+    col[:n] = torch.where(
+        k < live_w[slot_row].long(),
+        col[:n] + (row_shard[slot_row] * gcap).to(torch.int32), col[:n])
+    return BlockELL(val, col, live_w, widths,
+                    tuple(st for b in bells for st in b.strategies), br,
+                    row_w.numel(), len(bells) * gcap)
+
+
+class _SpmdBundle:
+    """Every shard stacked on one device, served by one blocked pass.
+
+    The semantics are the reference package's ``_SpmdBundle``: *global*
+    width buckets from one ``partition_width_buckets`` call over every
+    shard's block widths, one ``block_rows`` across shards, no degree-sorted
+    plan, and a quantized resident operand only when every shard's plan is
+    quantized and verifiably encodes the shard's gathered features.
+
+    The layout is this port's:
+
+      * the shards' blocks, in shard order, form one :class:`BlockELL`, so
+        shard ``s``'s local row ``r`` is stacked row ``blk_off[s] *
+        block_rows + r``;
+      * shard ``s``'s operand occupies rows ``[s * gcap, (s + 1) * gcap)``
+        of one ``[num_shards * gcap, F]`` stack (``gcap``: the widest
+        shard's column count), gathered by one ``index_select`` through a
+        flat gather index, so its live slots' columns are offset by ``s *
+        gcap``; dead slots keep ``(col 0, val 0.0)``, so the zero sentinel
+        still decodes to the plans' ``live_w``;
+      * one ``ops.block_ell_spmm`` call over the stack and the global
+        buckets, then one ``index_select`` keeps the real rows in shard
+        order (the reference scatters into a dump row instead).
+
+    Each shard of a quantized stack has its own ``(scale, x_min)``, so no
+    one uint8 launch serves the stack: a pass dequantizes each shard's
+    uint8 slice (``ops.dequantize``, Eq. 2 rounded twice, as the uint8
+    gather rounds) into a float32 stack, then makes the float launches.
+    The uint8 stack is what stays resident.
+    """
+
+    def __init__(self, shards, plans, features, mesh, max_buckets: int = 3):
+        for p in plans:
+            if p.perm is not None:
+                # the stacked rows assume block b's rows land at [b*br,
+                # (b+1)*br) in natural order; a degree-sorted plan's land at
+                # perm[those] and would need a per-shard inverse gather
+                raise ValueError(
+                    "spmd mode does not support degree-sorted (row-"
+                    "permuted) plans; use mode='loop' or layout='natural'")
+        brs = {p.bell.block_rows for p in plans}
+        if len(brs) != 1:
+            raise ValueError(f"spmd mode needs one block_rows, got {brs}")
+        br = brs.pop()
+        dev = mesh.device
+        plans = [_plan_to(p, dev) for p in plans]
+        num = len(shards)
+        self.mesh = mesh
+        self.num_shards = num
+        self.gcap = gcap = max(s.csr.num_cols for s in shards)
+        if num * gcap >= 2 ** 31:
+            raise ValueError(f"the stacked operand's {num} x {gcap} rows "
+                             "overflow the kernel's int32 columns")
+
+        gidx = np.zeros(num * gcap, np.int64)
+        for s, sh in enumerate(shards):
+            gidx[s * gcap:s * gcap + len(sh.gather_index)] = sh.gather_index
+        self._gidx = torch.from_numpy(gidx).to(dev)
+
+        self.bell = _stack_block_ells([p.bell for p in plans], gcap)
+        blk_off = np.cumsum([0] + [p.bell.num_blocks for p in plans])
+        keep = np.concatenate([blk_off[s] * br + np.arange(sh.num_rows)
+                               for s, sh in enumerate(shards)])
+        # None when the stacked rows are the real rows already
+        self._keep = None if keep.size == self.bell.num_rows else \
+            torch.from_numpy(keep).to(dev)
+        self.buckets = partition_width_buckets(self.bell.widths, max_buckets)
+
+        # Resident operand for x=None requests: the quantized stack when
+        # every shard's plan is quantized (one dtype across shards) and
+        # verifiably encodes the shard's gathered features (the one-time
+        # features_fp check loop mode makes), else the float gather.
+        from repro_torch.tuning.plan_cache import features_fingerprint
+
+        qs = [p.quantized for p in plans]
+        self._quant = all(
+            q is not None and q.q.dtype == qs[0].q.dtype
+            and features_fingerprint(s.gather(features)) == p.features_fp
+            for s, p, q in zip(shards, plans, qs))
+        if self._quant:
+            self._resident = qs[0].q.new_zeros((num * gcap,
+                                                qs[0].q.shape[1]))
+            for s, q in enumerate(qs):
+                self._resident[s * gcap:s * gcap + q.q.shape[0]] = q.q
+            self._eq2 = [(q.scale, q.x_min) for q in qs]
+            self._bits = qs[0].bits
+        else:
+            self._resident = features.index_select(0, self._gidx)
+        from repro_torch.kernels import ops
+
+        ops.prepare_block_ell(self.bell, self.buckets)
+
+    def run(self, x=None) -> torch.Tensor:
+        """One pass over every shard: ``x=None`` serves the resident
+        (possibly uint8) stack; a dense ``[num_nodes, F]`` matrix is
+        gathered into a float stack.  Returns ``[num_nodes, F]``."""
+        from repro_torch.kernels import ops
+
+        if x is not None:
+            stack = x.index_select(0, self._gidx)
+        elif self._quant:
+            stack = torch.empty(self._resident.shape, dtype=torch.float32,
+                                device=self._resident.device)
+            g = self.gcap
+            for s, (scale, x_min) in enumerate(self._eq2):
+                ops.dequantize(self._resident[s * g:(s + 1) * g], scale,
+                               x_min, bits=self._bits,
+                               out=stack[s * g:(s + 1) * g])
+        else:
+            stack = self._resident
+        out = ops.block_ell_spmm(self.bell, stack, buckets=self.buckets)
+        return out if self._keep is None else out.index_select(0, self._keep)
+
+
 class GNNServer:
     """Sharded, batched GNN inference engine over per-shard plans.
 
@@ -85,8 +237,9 @@ class GNNServer:
         plans, and served by ``submit(x=None)`` requests.
       num_shards: row shards (default: one per device of the server's
         device type — 1 on a one-card machine).
-      mode: ``"loop"`` (per-shard launches).  ``"spmd"`` raises
-        ``NotImplementedError``: it comes with the multi-card slice.
+      mode: ``"loop"`` (per-shard launches) or ``"spmd"`` (every shard
+        stacked on one device, one launch per global width bucket; a
+        degree-sorted plan raises ``ValueError``).
       quant: pre-quantize each shard's operand to this bit width (8/16);
         serving then moves uint8 features and fuses Eq. 2 into the gather.
       cache: plan cache (default process-wide).  Point it at a disk dir
@@ -97,7 +250,11 @@ class GNNServer:
         every CUDA device; a missing card raises).  ``csr`` and
         ``features`` are copied to the first one, where the shards are
         partitioned and tuned; pass ``devices=["cpu"]`` to serve on the
-        CPU through the kernels' plain versions.
+        CPU through the kernels' plain versions.  ``"spmd"`` mode stacks
+        every shard on one device (default: the current CUDA device); a
+        list of several distinct devices raises ``ValueError``.
+      max_buckets: the most width buckets, so kernel launches, of an
+        ``"spmd"`` pass.
 
     Serving API: ``submit(x=None) -> ticket``, ``flush() -> [results]``,
     or ``aggregate(x=None)`` for a one-shot request.  ``x=None`` requests
@@ -112,12 +269,11 @@ class GNNServer:
                  quant: Optional[int] = None,
                  cache: Optional[PlanCache] = None,
                  tune_kwargs: Optional[dict] = None,
-                 devices=None):
+                 devices=None,
+                 max_buckets: int = 3):
         if mode not in ("loop", "spmd"):
             raise ValueError(f"unknown mode {mode!r} "
                              "(expected 'loop' or 'spmd')")
-        if mode == "spmd":
-            raise not_ported('GNNServer(mode="spmd")', "multi-card serving")
         self.device = shard_devices(1, devices)[0]
         if num_shards is None:
             same_kind = torch.cuda.device_count() \
@@ -125,6 +281,11 @@ class GNNServer:
             num_shards = min(same_kind, csr.num_rows)
         self.mode = mode
         self.num_shards = int(num_shards)
+        self._mesh = None
+        if mode == "spmd":   # before tuning: several devices raise here
+            self._mesh = serving_mesh(self.num_shards, devices
+                                      if devices is not None else self.device)
+            self.device = self._mesh.device
         self.cache = cache if cache is not None else default_cache()
         self.features = torch.as_tensor(features, dtype=torch.float32,
                                         device=self.device)
@@ -133,6 +294,7 @@ class GNNServer:
         self._quant = quant
         self._tune_kwargs = dict(tune_kwargs or {})
         self._requested_devices = devices
+        self._max_buckets = max_buckets
         self.plans = plan_shards(
             self.shards, self.features, mesh_shape=self.mesh_shape,
             quant=quant, cache=self.cache, tune_kwargs=tune_kwargs)
@@ -155,10 +317,20 @@ class GNNServer:
         directly; one tuned on *other* features (a stale disk entry) has
         its quantized operand dropped from this server's copy and serves
         the float path.  Then every plan is warmed (:func:`_warm`), so a
-        request copies nothing from the host.
+        request copies nothing from the host.  In ``"spmd"`` mode the
+        stacked bundle (:class:`_SpmdBundle`) makes the same check and is
+        warmed when built.
         """
         from repro_torch.tuning.plan_cache import features_fingerprint
 
+        self._bundle = None
+        if self._mesh is not None:
+            self._bundle = _SpmdBundle(self.shards, self.plans, self.features,
+                                       self._mesh, self._max_buckets)
+            self._devices = [self.device] * self.num_shards
+            for s in self.shards:
+                s.index_on(self.device)
+            return
         self._devices = shard_devices(self.num_shards,
                                       self._requested_devices)
         self.plans = [_plan_to(p, d)
@@ -191,8 +363,9 @@ class GNNServer:
         Routes the global delta to the shards owning the touched rows
         (``repro_torch.serving.plans.apply_edge_updates_sharded``): those
         shards' plans are patched (or, when the halo changes, re-tuned),
-        every other shard's plan is untouched, and the execution state is
-        rebuilt from the swapped-in shards/plans.  Pending submitted
+        every other shard's plan is untouched, and the execution state
+        (resident operands, or the spmd bundle) is rebuilt from the
+        swapped-in shards/plans.  Pending submitted
         tickets are served by the *patched* graph at the next ``flush()``.
 
         Returns the routing report (patched/retuned/untouched/halo_shrunk
@@ -352,6 +525,8 @@ class GNNServer:
 
     def _run(self, x):
         self.stats["sharded_passes"] += 1
+        if self._bundle is not None:
+            return self._bundle.run(x)
         return self._run_loop(x)
 
     def _operand(self, s: int, x):

@@ -491,8 +491,7 @@ def _build_server(args, tune_kwargs=None, quant=None):
 def _smoke(args) -> dict:
     """Gate: batching correctness (runtime == synchronous flush() == the
     ref oracle), deadline + size flush triggers, graceful drain, and
-    nonzero open-loop throughput.  Loop mode only: the reference's spmd
-    mode comes with the multi-card slice of the port."""
+    nonzero open-loop throughput; loop and spmd mode."""
     import json
 
     import numpy as np
@@ -511,35 +510,35 @@ def _smoke(args) -> dict:
 
     report: dict = {"device": str(dev), "shards": args.shards,
                     "nodes": csr.num_rows, "edges": csr.nnz,
-                    "modes": ["loop"],
-                    "spmd": "not ported (the multi-card slice)"}
-    server = GNNServer(csr, feats, num_shards=args.shards,
-                       cache=PlanCache(), tune_kwargs=tk, devices=[dev])
-    # synchronous flush() results are the pinned baseline
-    t0, t1 = server.submit(), server.submit(feats * 2.0)
-    sync = [_to_numpy(r) for r in server.flush()]
-    np.testing.assert_allclose(sync[t0], want, rtol=1e-5, atol=1e-5)
+                    "modes": ["loop", "spmd"]}
+    for mode in report["modes"]:
+        server = GNNServer(csr, feats, num_shards=args.shards, mode=mode,
+                           cache=PlanCache(), tune_kwargs=tk, devices=[dev])
+        # synchronous flush() results are the pinned baseline
+        t0, t1 = server.submit(), server.submit(feats * 2.0)
+        sync = [_to_numpy(r) for r in server.flush()]
+        np.testing.assert_allclose(sync[t0], want, rtol=1e-5, atol=1e-5)
 
-    with ServingRuntime(server, max_batch=4, max_delay_ms=10.0) as rt:
-        # deadline flush: fewer requests than max_batch, no further
-        # submissions — only the deadline can flush these
-        r_none = rt.submit()
-        r_x2 = rt.submit(feats * 2.0)
-        np.testing.assert_allclose(_to_numpy(r_none.result(60)), sync[t0],
-                                   rtol=1e-6, atol=1e-6)
-        np.testing.assert_allclose(_to_numpy(r_x2.result(60)), sync[t1],
-                                   rtol=1e-6, atol=1e-6)
-        # size flush under burst: 8 requests, max_batch=4
-        burst = [rt.submit() for _ in range(8)]
-        for r in burst:
-            np.testing.assert_allclose(_to_numpy(r.result(60)), want,
-                                       rtol=1e-5, atol=1e-5)
-        snap = rt.snapshot()
-    assert snap["counters"]["batches_deadline"] >= 1, snap["counters"]
-    assert snap["counters"]["batches_size"] >= 2, snap["counters"]
-    assert snap["counters"]["completed"] == 10
-    report["parity_loop"] = "ok"
-    report["batches_loop"] = snap["counters"]["batches"]
+        with ServingRuntime(server, max_batch=4, max_delay_ms=10.0) as rt:
+            # deadline flush: fewer requests than max_batch, no further
+            # submissions — only the deadline can flush these
+            r_none = rt.submit()
+            r_x2 = rt.submit(feats * 2.0)
+            np.testing.assert_allclose(_to_numpy(r_none.result(60)),
+                                       sync[t0], rtol=1e-6, atol=1e-6)
+            np.testing.assert_allclose(_to_numpy(r_x2.result(60)),
+                                       sync[t1], rtol=1e-6, atol=1e-6)
+            # size flush under burst: 8 requests, max_batch=4
+            burst = [rt.submit() for _ in range(8)]
+            for r in burst:
+                np.testing.assert_allclose(_to_numpy(r.result(60)), want,
+                                           rtol=1e-5, atol=1e-5)
+            snap = rt.snapshot()
+        assert snap["counters"]["batches_deadline"] >= 1, snap["counters"]
+        assert snap["counters"]["batches_size"] >= 2, snap["counters"]
+        assert snap["counters"]["completed"] == 10
+        report[f"parity_{mode}"] = "ok"
+        report[f"batches_{mode}"] = snap["counters"]["batches"]
 
     # nonzero-throughput sanity: a short open-loop Poisson run
     server = GNNServer(csr, feats, num_shards=args.shards, cache=PlanCache(),

@@ -4,9 +4,8 @@
     python -m repro_torch.serving.server --dataset cora --shards 4 --quant
 
 ``--smoke`` builds a small synthetic graph, serves it through a 4-shard
-:class:`~repro_torch.serving.GNNServer` in loop mode (the reference's spmd
-mode comes with the multi-card slice of the port, and the report says
-so), and asserts
+:class:`~repro_torch.serving.GNNServer` in loop mode and in spmd mode
+(every shard stacked on the one device), and asserts
 
   * float-plan parity with the exact single-device CSR SpMM,
   * quantized-plan parity within the per-shard quantization bound,
@@ -65,22 +64,22 @@ def _smoke(args: argparse.Namespace) -> dict:
 
     report: dict = {"device": str(dev), "shards": shards,
                     "nodes": csr.num_rows, "edges": csr.nnz,
-                    "modes": ["loop"],
-                    "spmd": "not ported (the multi-card slice)"}
+                    "modes": ["loop", "spmd"]}
 
     with tempfile.TemporaryDirectory() as cache_dir:
-        server = GNNServer(csr, feats, num_shards=shards,
-                           cache=PlanCache(cache_dir), tune_kwargs=tk,
-                           devices=[dev])
-        close(server.aggregate(), want)
-        # micro-batch: two float requests in one flush
-        t1 = server.submit(feats)
-        t2 = server.submit(feats * 2.0)
-        r = server.flush()
-        close(r[t1], want)
-        close(r[t2], want * 2.0)
-        report["parity_loop"] = "ok"
-        report["halo_loop"] = server.halo_stats()["halo_expansion"]
+        for mode in report["modes"]:
+            server = GNNServer(csr, feats, num_shards=shards, mode=mode,
+                               cache=PlanCache(cache_dir), tune_kwargs=tk,
+                               devices=[dev])
+            close(server.aggregate(), want)
+            # micro-batch: two float requests in one flush
+            t1 = server.submit(feats)
+            t2 = server.submit(feats * 2.0)
+            r = server.flush()
+            close(r[t1], want)
+            close(r[t2], want * 2.0)
+            report[f"parity_{mode}"] = "ok"
+            report[f"halo_{mode}"] = server.halo_stats()["halo_expansion"]
 
         # quantized plans: within the quantization bound (own cache dir,
         # inside the tempdir so it is cleaned up with it)

@@ -38,8 +38,9 @@ delta on the CSR's device — the merge, the re-digest of touched digest
 blocks, the re-ranking and re-sampling of touched plan blocks, the
 re-quantization of changed feature rows — and lands bit for bit on the
 plan a cold ``tune_blocked`` of the patched graph computes (``DeltaReport``
-says what it touched).  The command lines come with a later slice of
-the port.
+says what it touched).  Command lines: ``python -m
+repro_torch.tuning.autotune`` and ``python -m
+repro_torch.tuning.calibration``.
 """
 from repro_torch.tuning.cost_model import (CandidateConfig, CostEstimate,
                                            MachineModel, RooflineTerms,

@@ -24,12 +24,22 @@ when that model's recent rank correlation is high — step 3 measures fewer
 candidates (``effective_budget``).
 
 Candidate backends are ``"torch"`` (eager) and ``"cuda"`` (the kernels),
-the latter offered only when the CSR lies on a CUDA device.  The command
-line over both tuners (``python -m repro.tuning.autotune`` in the reference
-package) comes with the serving slice of the port.
+the latter offered only when the CSR lies on a CUDA device.
+
+CLI::
+
+    python -m repro_torch.tuning.autotune --smoke [--device cpu]
+    python -m repro_torch.tuning.autotune --dataset reddit --scale 0.05 \
+        [--granularity block [--layout degree_sorted]] [--shards 4] [--quant]
+
+tunes a synthetic Table-2 graph on ``--device`` (default ``cuda``), prints
+the chosen plan as JSON and asserts that a second tune is a cache hit.
 """
 from __future__ import annotations
 
+import argparse
+import json
+import os
 from typing import Optional, Sequence
 
 import numpy as np
@@ -506,3 +516,225 @@ def _log_blocked_plan(block_feats, configs, backend, quant_bits,
              "feat_dim": block_feats[0].feat_dim if block_feats else 0})
     except Exception:
         pass
+
+
+# ---------------------------------------------------------------------------
+# CLI
+# ---------------------------------------------------------------------------
+
+def _calibration_status() -> dict:
+    """Report fields describing the active calibration log, if any."""
+    log = calibration.default_log()
+    if log is None:
+        return {"calibration": "off"}
+    records = log.records()
+    lat = [r for r in records
+           if r.get("kind") in calibration.LATENCY_KINDS]
+    return {"calibration": {
+        "path": str(log.path_for()),
+        "records": len(records),
+        "fitted": calibration.calibrated_machine_model(log=log) is not None,
+        "min_records": calibration.MIN_FIT_RECORDS,
+        "latency_records": len(lat),
+    }}
+
+
+def _run_cli(args: argparse.Namespace) -> dict:
+    """The CLI's work: the reference package's report keys in each branch
+    (``--shards``, ``--granularity block``, graph), each asserting that its
+    second tune is a cache hit; ``--smoke`` runs a small fixed graph and
+    ends each branch with ``smoke: OK``."""
+    import time
+
+    from repro_torch._device import resolve_device
+    from repro_torch.gnn.datasets import SYNTHETIC_DATASETS, make_dataset
+
+    if not args.smoke and args.dataset not in SYNTHETIC_DATASETS:
+        raise SystemExit(
+            f"unknown dataset {args.dataset!r}; choose from: "
+            + ", ".join(sorted(SYNTHETIC_DATASETS)))
+
+    if args.no_calibration:
+        calibration.set_default_log(None)
+    elif args.calibrate:
+        root = args.cache_dir or os.environ.get("REPRO_PLAN_CACHE_DIR")
+        if not root:
+            raise SystemExit("--calibrate needs --cache-dir or "
+                             "$REPRO_PLAN_CACHE_DIR (the log lives beside "
+                             "the plan cache)")
+        calibration.set_default_log(calibration.CalibrationLog(
+            calibration.calibration_dir(root)))
+
+    if args.smoke:
+        ds_name, scale, widths, budget = "cora", 0.1, (16, 32, 64), 4
+    else:
+        ds_name, scale = args.dataset, args.scale
+        widths = tuple(args.widths)
+        budget = args.budget
+
+    device = resolve_device(args.device)
+    ds = make_dataset(ds_name, scale=scale, seed=args.seed, device=device)
+    csr = ds.gcn_adj
+    cache = PlanCache(args.cache_dir) if args.cache_dir else PlanCache()
+
+    def emit(report: dict) -> dict:
+        print(json.dumps(report, indent=None if args.json else 2))
+        return report
+
+    if args.shards and args.shards > 1:
+        # Per-shard serving plans (repro_torch.serving): tune one
+        # BlockedPlan per row shard, keyed by (fingerprint, "block",
+        # shard_meta), and prove the second pass is a pure cache hit.
+        from repro_torch.serving import partition_csr, plan_shards
+
+        shards = partition_csr(csr, args.shards)
+        kw = dict(block_rows=args.block_rows, widths=widths,
+                  quant=8 if args.quant else None)
+        plans = plan_shards(shards, ds.features, cache=cache,
+                            tune_kwargs=dict(kw, verbose=args.verbose))
+        hits_before = cache.stats.hits
+        t0 = time.perf_counter()
+        plan_shards(shards, ds.features, cache=cache, tune_kwargs=kw)
+        hit_us = (time.perf_counter() - t0) * 1e6
+        report = emit({
+            "dataset": ds_name,
+            "nodes": csr.num_rows,
+            "edges": csr.nnz,
+            "shards": args.shards,
+            "per_shard": [
+                {"shard": s.shard_idx, "rows": s.num_rows,
+                 "halo": s.num_halo,
+                 "widths": list(p.bell.widths),
+                 "measured_spmm_us": round(p.measured_spmm_us, 2)}
+                for s, p in zip(shards, plans)],
+            "cache_hit_us": round(hit_us, 2),
+            "cache_stats": {"hits": cache.stats.hits,
+                            "misses": cache.stats.misses},
+        })
+        if cache.stats.hits < hits_before + args.shards:
+            raise AssertionError(
+                "sharded plan cache did not hit on the second pass")
+    elif args.granularity == "block":
+        plan = tune_blocked(csr, ds.features, block_rows=args.block_rows,
+                            widths=widths, quant=8 if args.quant else None,
+                            layout=args.layout,
+                            cache=cache, verbose=args.verbose)
+        hits_before = cache.stats.hits
+        t0 = time.perf_counter()
+        tune_blocked(csr, ds.features, block_rows=args.block_rows,
+                     layout=args.layout, cache=cache)
+        hit_us = (time.perf_counter() - t0) * 1e6
+        from collections import Counter
+        report = emit({
+            "dataset": ds_name,
+            "nodes": csr.num_rows,
+            "edges": csr.nnz,
+            "granularity": "block",
+            "layout": plan.row_layout,
+            "block_rows": plan.block_rows,
+            "num_blocks": plan.bell.num_blocks,
+            "block_configs": dict(Counter(
+                f"{s}-w{w}" for s, w in plan.block_configs())),
+            "width_buckets": [[w, len(ids)] for w, ids in plan.buckets],
+            "quant_bits": None if plan.quantized is None
+            else plan.quantized.bits,
+            "live_edges": plan.bell.live_edges(),
+            "measured_spmm_us": round(plan.measured_spmm_us, 2),
+            "measured_bucket_us": [round(u, 2)
+                                   for u in plan.measured_bucket_us],
+            "predicted_us": round(plan.predicted_us, 2),
+            "cache_hit_us": round(hit_us, 2),
+        })
+        if cache.stats.hits != hits_before + 1:
+            raise AssertionError(
+                "plan cache did not hit on the second tune_blocked()")
+    else:
+        plan = tune(csr, ds.features, budget=budget, widths=widths,
+                    quant=(None, 8) if args.quant else (None,),
+                    cache=cache, verbose=args.verbose)
+
+        # a second tune() with the same graph must be a pure cache hit
+        hits_before = cache.stats.hits
+        t0 = time.perf_counter()
+        tune(csr, ds.features, cache=cache)
+        hit_us = (time.perf_counter() - t0) * 1e6
+        report = emit({
+            "dataset": ds_name,
+            "nodes": csr.num_rows,
+            "edges": csr.nnz,
+            "chosen": plan.config.to_dict(),
+            "measured_spmm_us": round(plan.measured_spmm_us, 2),
+            "measured_sample_us": round(plan.measured_sample_us, 2),
+            "predicted_us": round(plan.predicted_us, 2),
+            "cache_hit_us": round(hit_us, 2),
+            "cache_stats": {"hits": cache.stats.hits,
+                            "misses": cache.stats.misses},
+            **_calibration_status(),
+        })
+        if cache.stats.hits != hits_before + 1:
+            raise AssertionError(
+                "plan cache did not hit on the second tune()")
+    if args.smoke:
+        print("smoke: OK")
+    return report
+
+
+def main(argv: Sequence[str] | None = None) -> None:
+    p = argparse.ArgumentParser(
+        prog="python -m repro_torch.tuning.autotune",
+        description="Auto-tune (strategy, W, backend, quant) for a graph "
+                    "and cache the sampled plan.")
+    p.add_argument("--dataset", default="cora",
+                   help="Table-2 dataset name (see repro_torch.gnn.datasets)")
+    p.add_argument("--scale", type=float, default=0.02,
+                   help="node-count scale of the synthetic instance")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--widths", type=int, nargs="+",
+                   default=list(DEFAULT_WIDTHS))
+    p.add_argument("--budget", type=int, default=6,
+                   help="how many analytic top candidates to measure "
+                        "(graph granularity only; blocked tuning ranks "
+                        "analytically per block)")
+    p.add_argument("--granularity", choices=("graph", "block"),
+                   default="graph",
+                   help="one global config, or per-row-block mixed widths")
+    p.add_argument("--block-rows", type=int, default=4096,
+                   help="rows per block for --granularity block")
+    p.add_argument("--layout",
+                   choices=("natural", "degree_sorted", "auto"),
+                   default="natural",
+                   help="row layout for --granularity block: natural node "
+                        "order, degree-sorted (rows sorted nnz-descending "
+                        "before blocking, inverse-permuted on output), or "
+                        "cost-model auto-pick")
+    p.add_argument("--shards", type=int, default=0,
+                   help="tune per-shard serving plans over an N-way row "
+                        "partition (repro_torch.serving; implies blocked "
+                        "plans)")
+    p.add_argument("--quant", action="store_true",
+                   help="include int8 feature quantization in the grid "
+                        "(--granularity block: pre-quantize the plan)")
+    p.add_argument("--cache-dir", default=None,
+                   help="persist plans to this directory "
+                        "(default: in-memory, or $REPRO_PLAN_CACHE_DIR)")
+    p.add_argument("--calibrate", action="store_true",
+                   help="log (predicted, measured) pairs to the calibration "
+                        "log beside the plan cache and rank with the "
+                        "host-fitted MachineModel once enough exist "
+                        "(see python -m repro_torch.tuning.calibration)")
+    p.add_argument("--no-calibration", action="store_true",
+                   help="disable calibration logging/fitting even when "
+                        "$REPRO_PLAN_CACHE_DIR would enable it")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu")
+    p.add_argument("--smoke", action="store_true",
+                   help="tiny fixed-seed run + cache-hit assertion (CI)")
+    p.add_argument("--json", action="store_true",
+                   help="single-line JSON output")
+    p.add_argument("--verbose", action="store_true",
+                   help="print the analytic ranking table")
+    _run_cli(p.parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -31,8 +31,17 @@ lower-residual solution — and rejects outliers beyond 3.5 robust sigmas
 (a regime with < 2 records, a non-positive solve) keep the prior's value,
 so fitted models are always strictly positive.
 
-The module's command line (``fit``/``show``/``clear``/``compact``/
-``--smoke`` in the reference package) comes with a later slice of the port.
+CLI::
+
+    python -m repro_torch.tuning.calibration --smoke [--device cpu]
+    python -m repro_torch.tuning.calibration fit|show|clear|compact \
+        --cache-dir DIR [--device cpu]
+
+``--smoke`` fits synthetic records and asserts the fit ranks better than
+the default constants; the commands act on this host's log under ``DIR``
+(or ``$REPRO_PLAN_CACHE_DIR``).  ``--device`` (default ``cuda``) names the
+device whose host log is meant: the host fingerprint names the card, so
+asking for the card without one raises.
 """
 from __future__ import annotations
 
@@ -44,8 +53,9 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from repro_torch.tuning.cost_model import (MachineModel, RooflineTerms,
-                                           terms_latency_us)
+from repro_torch.tuning.cost_model import (CandidateConfig, MachineModel,
+                                           RooflineTerms, terms_latency_us,
+                                           terms_sample_us)
 from repro_torch.tuning.plan_cache import PLAN_SUBDIR
 
 _ENV_CACHE_DIR = "REPRO_PLAN_CACHE_DIR"
@@ -618,3 +628,164 @@ def effective_budget(budget: int, *,
     if rank_correlation(machine, log=log, host=host) >= threshold:
         return max(min_keep, budget // 3)
     return budget
+
+
+# ---------------------------------------------------------------------------
+# CLI: python -m repro_torch.tuning.calibration fit|show|clear|compact
+#      [--smoke]
+# ---------------------------------------------------------------------------
+
+def synthetic_records(num: int = 30, seed: int = 0,
+                      true_model: MachineModel | None = None,
+                      host: str = "smoke-host") -> list[dict]:
+    """Records "measured" by a known machine over a mixed compute-/memory-
+    bound config spread — the smoke fits these and must improve on the
+    default constants.  The true machine inverts the default's
+    compute/memory balance so the default *misorders* the grid.  The draws
+    are the reference package's, record for record."""
+    rng = np.random.default_rng(seed)
+    true_model = true_model or MachineModel(
+        peak_flops=MachineModel().peak_flops / 16.0,
+        hbm_bw=MachineModel().hbm_bw * 4.0,
+        launch_overhead_us=240.0,
+        sample_cost_ns={"sfs": 2.0, "afs": 6.0, "aes": 4.0, "full": 1.0})
+    default = MachineModel()
+    out = []
+    strategies = ("aes", "afs", "sfs", "full")
+    for i in range(num):
+        scale = float(10.0 ** rng.uniform(6.5, 9.0))
+        ratio = float(10.0 ** rng.uniform(-1.5, 1.5))   # flops : bytes
+        terms = RooflineTerms(flops=scale * ratio, bytes=scale,
+                              slots=scale / 64.0)
+        strat = strategies[i % len(strategies)]
+        cfg = CandidateConfig(strat, 0 if strat == "full" else 64)
+        true_us = terms_latency_us(terms, true_model)
+        jitter = 1.0 + 0.02 * float(rng.standard_normal())
+        out.append(measurement_record(
+            "spmm", cfg.to_dict(), terms,
+            predicted_us=terms_latency_us(terms, default),
+            measured_us=true_us * jitter, host=host))
+        out.append(measurement_record(
+            "sample", cfg.to_dict(), terms,
+            predicted_us=terms_sample_us(terms, strat, default),
+            measured_us=terms_sample_us(terms, strat, true_model) * jitter,
+            host=host))
+    return out
+
+
+def _smoke(as_json: bool) -> dict:
+    records = synthetic_records(30)
+    lat = [r for r in records if r["kind"] in LATENCY_KINDS]
+    meas = [r["measured_us"] for r in lat]
+    terms = [RooflineTerms.from_dict(r["terms"]) for r in lat]
+    base_rho = spearman([r["predicted_us"] for r in lat], meas)
+    fitted = fit_machine_model(records)
+    fit_rho = spearman([terms_latency_us(t, fitted) for t in terms], meas)
+    report = {
+        "records": len(lat),
+        "rank_corr_default": round(base_rho, 4),
+        "rank_corr_fitted": round(fit_rho, 4),
+        "fitted": {k: round(v, 4) if isinstance(v, float) else v
+                   for k, v in fitted.to_dict().items()
+                   if k != "sample_cost_ns"},
+    }
+    print(json.dumps(report, indent=None if as_json else 2))
+    if fit_rho <= base_rho:
+        raise AssertionError(f"fitted rank correlation {fit_rho:.3f} <= "
+                             f"default {base_rho:.3f}")
+    for name, v in (("peak_flops", fitted.peak_flops),
+                    ("hbm_bw", fitted.hbm_bw),
+                    ("launch_overhead_us", fitted.launch_overhead_us),
+                    *fitted.sample_cost_ns.items()):
+        if not v > 0:
+            raise AssertionError(f"non-positive fitted constant {name}={v}")
+    print("smoke: OK")
+    return report
+
+
+def _resolve_cli_log(cache_dir: str | None) -> CalibrationLog:
+    root = cache_dir or os.environ.get(_ENV_CACHE_DIR)
+    if not root:
+        raise SystemExit("no calibration log: pass --cache-dir or set "
+                         f"${_ENV_CACHE_DIR}")
+    return CalibrationLog(calibration_dir(root))
+
+
+def main(argv: Sequence[str] | None = None) -> None:
+    import argparse
+
+    from repro_torch._device import resolve_device
+
+    p = argparse.ArgumentParser(
+        prog="python -m repro_torch.tuning.calibration",
+        description="Inspect / fit / clear the per-host cost-model "
+                    "calibration log.")
+    p.add_argument("command", nargs="?",
+                   choices=("fit", "show", "clear", "compact"),
+                   help="what to do with the log (omit with --smoke)")
+    p.add_argument("--cache-dir", default=None,
+                   help="plan-cache dir holding the port's calibration/ "
+                        f"(default: ${_ENV_CACHE_DIR})")
+    p.add_argument("--host", default=None,
+                   help="host fingerprint to operate on (default: this "
+                        "host; 'all' clears/compacts every host)")
+    p.add_argument("--min-records", type=int, default=MIN_FIT_RECORDS)
+    p.add_argument("--max-records", type=int, default=None,
+                   help="records kept per host by 'compact' (default: "
+                        f"${_ENV_MAX_RECORDS} or {DEFAULT_MAX_RECORDS})")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu: the device whose host log "
+                        "is meant")
+    p.add_argument("--smoke", action="store_true",
+                   help="fit 30 synthetic records and assert the rank "
+                        "correlation improves (CI gate; needs no log)")
+    p.add_argument("--json", action="store_true",
+                   help="single-line JSON output")
+    args = p.parse_args(argv)
+    resolve_device(args.device)
+
+    if args.smoke:
+        _smoke(args.json)
+        return
+    if not args.command:
+        p.error("need a command (fit | show | clear | compact) or --smoke")
+
+    log = _resolve_cli_log(args.cache_dir)
+    if args.command == "clear":
+        n = log.clear(None if args.host == "all"
+                      else args.host or host_fingerprint())
+        print(json.dumps({"cleared_files": n}))
+        return
+    if args.command == "compact":
+        r = log.compact(max_records=args.max_records,
+                        host=None if args.host == "all"
+                        else args.host or host_fingerprint())
+        print(json.dumps(r))
+        return
+
+    host = args.host or host_fingerprint()
+    records = log.records(host)
+    lat = [r for r in records if r.get("kind") in LATENCY_KINDS]
+    report: dict = {"host": host, "path": str(log.path_for(host)),
+                    "records": len(records), "latency_records": len(lat)}
+    if args.command == "show":
+        report["min_records"] = args.min_records
+        report["active"] = len(lat) >= args.min_records
+        if lat:
+            report["rank_corr_logged"] = round(spearman(
+                [r["predicted_us"] for r in lat],
+                [r["measured_us"] for r in lat]), 4)
+    want_fit = args.command == "fit" or report.get("active")
+    if args.command == "fit" and len(lat) < 3:
+        raise SystemExit(f"only {len(lat)} latency records for host {host} "
+                         "(need >= 3 to fit)")
+    if want_fit and len(lat) >= 3:
+        fitted = fit_machine_model(records)
+        report["fitted"] = fitted.to_dict()
+        report["rank_corr_fitted"] = round(
+            rank_correlation(fitted, log=log, host=host), 4)
+    print(json.dumps(report, indent=None if args.json else 2))
+
+
+if __name__ == "__main__":
+    main()

@@ -493,6 +493,46 @@ def test_sharded_serving_on_the_card_equals_the_cpu(cuda):
         assert rt.snapshot()["counters"]["completed"] == 10
 
 
+def test_spmd_serving_on_the_card_equals_the_cpu(cuda):
+    """A 4-shard ``GNNServer(mode="spmd")`` on ``cuda`` (f32 and u8 plans)
+    against the same server on the CPU (1e-5, u8 1e-4), and bit for bit
+    against loop mode on the card over the same plans; a pass launches
+    ``block_ell_spmm`` once a global bucket (at most 3) and, on u8 plans,
+    ``dequantize`` once a shard."""
+    from repro_torch.serving import GNNServer
+    from repro_torch.tuning import MachineModel, PlanCache
+
+    rng = np.random.default_rng(29)
+    g = _graph(8, 4000, 10.0, 0.8, "cpu", hub=1200)
+    x = torch.from_numpy(rng.normal(size=(4000, 32)).astype(np.float32))
+    h = torch.from_numpy(rng.normal(size=(4000, 8)).astype(np.float32))
+    tk = dict(block_rows=256, measure_plan=False, measure_buckets=False,
+              machine=MachineModel())
+    for quant in (None, 8):
+        kw = dict(num_shards=4, quant=quant, tune_kwargs=tk)
+        host = GNNServer(g, x, mode="spmd", cache=PlanCache(),
+                         devices=["cpu"], **kw)
+        cache = PlanCache()
+        card = GNNServer(g, x, mode="spmd", cache=cache, devices=[cuda],
+                         **kw)
+        loop = GNNServer(g, x, cache=cache, devices=[cuda], **kw)
+        assert card.plan_summary() == host.plan_summary()
+        tol = 1e-4 if quant else 1e-5
+        for op in (None, h):
+            ops.reset_launch_counts()
+            got = card.aggregate(None if op is None else op.to(cuda))
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            assert 1 <= counts["block_ell_spmm"] <= 3
+            assert counts["dequantize"] == (4 if quant and op is None
+                                            else 0)
+            torch.testing.assert_close(got.cpu(), host.aggregate(op),
+                                       rtol=tol, atol=tol,
+                                       msg=lambda m: f"quant={quant}: {m}")
+            assert torch.equal(
+                got, loop.aggregate(None if op is None else op.to(cuda)))
+
+
 def test_lm_serve_on_the_card_equals_the_cpu(cuda):
     """Smoke configs in float32 on one set of weights, on ``cuda`` and on
     the CPU: dense (full attention, and AES-KV at W = 8 over the int8

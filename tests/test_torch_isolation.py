@@ -8,8 +8,9 @@ training substrate: ``data``, ``checkpoint``, ``runtime``,
 (and raise without one instead of running on the CPU: ``evaluate``,
 ``make_dataset``, ``train_model``, ``make_presampled_agg``,
 ``GNNServer``, the LM's ``init_params`` and ``serve``, also for the
-pattern archs, and ``launch.train.main``), and the
-smoke script refuses to report a result without a card or without the
+pattern archs, ``launch.train.main``, and the command lines of
+``repro_torch.exec``, ``tuning.autotune`` and ``tuning.calibration``), and
+the smoke script refuses to report a result without a card or without the
 repository around it."""
 from __future__ import annotations
 
@@ -56,7 +57,9 @@ for name in ("repro_torch.optim.adamw", "repro_torch.configs.gnn_paper",
              "repro_torch.data.pipeline",
              "repro_torch.checkpoint.checkpointer",
              "repro_torch.runtime.fault_tolerance",
-             "repro_torch.launch.train", "repro_torch.examples.lm_train"):
+             "repro_torch.launch.train", "repro_torch.examples.lm_train",
+             "repro_torch.exec.__main__", "repro_torch.tuning.autotune",
+             "repro_torch.tuning.calibration"):
     assert name in names, name
 print("MODULES", len(names))
 
@@ -88,6 +91,9 @@ else:
     xl = smoke_config(get_config("xlstm-350m"))
     xl_lm = init_params(xl, device="cpu")
     from repro_torch.serving import GNNServer
+    from repro_torch.exec.__main__ import main as exec_cli
+    from repro_torch.tuning.autotune import main as autotune_cli
+    from repro_torch.tuning.calibration import main as calibration_cli
     for name, call in (
             ("TRAIN", lambda: train_model(ds, "gcn", hidden=8, epochs=1)),
             ("PRESAMPLED", lambda: make_presampled_agg(ds.gcn_adj, 8,
@@ -99,7 +105,10 @@ else:
             ("PATTERN_INIT", lambda: init_params(zamba)),
             ("PATTERN_SERVE", lambda: serve(xl, xl_lm,
                                             np.ones((1, 4), np.int32), 2)),
-            ("TRAIN_MAIN", lambda: train_main(["--smoke", "--steps", "1"]))):
+            ("TRAIN_MAIN", lambda: train_main(["--smoke", "--steps", "1"])),
+            ("EXEC_CLI", lambda: exec_cli(["--smoke"])),
+            ("AUTOTUNE_CLI", lambda: autotune_cli(["--smoke"])),
+            ("CALIBRATION_CLI", lambda: calibration_cli(["--smoke"]))):
         try:
             call()
         except RuntimeError as exc:
@@ -123,7 +132,8 @@ def test_port_loads_no_jax_and_defaults_to_the_card():
     if "EVALUATED_ON_CUDA" not in out.stdout:
         for what in ("", "DATASET_", "TRAIN_", "PRESAMPLED_", "SERVER_",
                      "LM_INIT_", "LM_SERVE_", "PATTERN_INIT_",
-                     "PATTERN_SERVE_", "TRAIN_MAIN_"):
+                     "PATTERN_SERVE_", "TRAIN_MAIN_", "EXEC_CLI_",
+                     "AUTOTUNE_CLI_", "CALIBRATION_CLI_"):
             assert what + "RAISED_WITHOUT_CARD" in out.stdout, what
 
 

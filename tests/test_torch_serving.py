@@ -265,8 +265,6 @@ def test_batching_validation_and_lifecycle():
     assert server.close() == []
     with pytest.raises(ValueError, match="unknown mode"):
         GNNServer(to_port(g), x, mode="ring", devices=[CPU])
-    with pytest.raises(NotImplementedError, match="multi-card"):
-        GNNServer(to_port(g), x, mode="spmd", devices=[CPU])
     assert shard_devices(3, ["cpu"]) == [torch.device("cpu")] * 3
     assert GNNServer(to_port(g), x, cache=PlanCache(), devices=[CPU],
                      tune_kwargs=_tk(g, True)).num_shards == 1

@@ -379,9 +379,10 @@ def test_cli_smoke_on_the_cpu(module):
     assert report["device"] == "cpu"
     if module == "repro_torch.serving.server":
         assert report["parity_loop"] == report["parity_quant"] == "ok"
+        assert report["parity_spmd"] == "ok"
         assert report["warm_disk_hits"] == 4
     elif module == "repro_torch.serving.runtime":
-        assert report["parity_loop"] == "ok"
+        assert report["parity_loop"] == report["parity_spmd"] == "ok"
         assert report["open_loop"]["achieved_rps"] > 0
     else:
         assert report["tree"]["well_formed"]
