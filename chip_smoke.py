@@ -170,6 +170,21 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    on one constant batch, whose loss must fall; and at smoke size a run
    failing at an injected step, its checkpoint restored bit for bit and
    a resumed run whose losses match an uninterrupted one's to 1e-3.
+   Then the device mesh, each part in a process of its own, so that no
+   process group outlives it (none of the six kernels launched):
+   ``lm_mesh`` (``python3 chip_smoke.py --lm-mesh``) trains TinyLlama-1.1B
+   unreduced, B 8 x S 256, remat on, 3 steps of ``make_train_step`` on
+   the plain state and on DTensors placed by the sharding rules over a
+   1x1 mesh of a one-rank nccl group (``sharded_step``, under
+   ``implicit_replication``), deterministic algorithms on: losses and
+   parameters must be ``torch.equal``; s a step of each; then
+   ``launch.train.main`` with ``--production-mesh`` and ``--multi-pod``
+   must raise ``ValueError`` naming 256 and 512 ranks and leave no group.
+   ``lm_dryrun``: ``python -m repro_torch.launch.dryrun`` for
+   ``tinyllama-1.1b decode_32k`` and ``qwen2-7b train_4k`` on 16x16 (a
+   fake 256-rank group, the model full size under ``FakeTensorMode``),
+   each with ``--device cuda`` and again with ``--device cpu``: both OK
+   and their JSONs equal in every field but timings and the device.
    The kernel checks of the int8 layers and of phase 5 keep random
    parameters from a numpy seed: they hold kernels, not accuracy.
 5. Kernel times at the main path's shapes (CUDA events around batches of
@@ -2562,6 +2577,168 @@ def lm_train_path(P) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4: the device mesh (each part in a process of its own)
+# ---------------------------------------------------------------------------
+
+#: ``lm_mesh``: the training phase's model and batch, steps on a 1x1 mesh
+LM_MESH_STEPS = 3
+#: ``lm_dryrun``: the reference's own gate cell and the cell a card run
+#: of an earlier attempt failed on, each run with --device cuda and cpu
+LM_DRYRUN_CELLS = (("tinyllama-1.1b", "decode_32k"), ("qwen2-7b", "train_4k"))
+#: what may differ between a cell's two runs: timings and the device
+LM_DRYRUN_FREE = ("build_s", "step_s", "device")
+
+
+def lm_mesh_child() -> None:
+    """``python3 chip_smoke.py --lm-mesh`` (run by :func:`lm_mesh_path`):
+    ``LM_TRAIN_ARCH`` unreduced, remat on, ``LM_MESH_STEPS`` steps of
+    ``make_train_step`` plainly and on DTensors over a 1x1 mesh of a
+    one-rank nccl group (``sharded_step``, under ``implicit_replication``),
+    from one state and batches, deterministic algorithms on (the
+    embedding's gradient otherwise sums in atomic order); then
+    ``launch.train.main`` with ``--production-mesh`` and ``--multi-pod``,
+    which start their own one-rank group and must raise ``ValueError``
+    naming 256 and 512 ranks.  Prints one JSON line."""
+    import os
+
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    P = port()
+    torch = P.torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    device = torch.device("cuda")
+    P.ops.reset_launch_counts()
+    cfg = P.get_config(LM_TRAIN_ARCH)
+    model = P.init_params(cfg, 0, device=device)
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    pipe = P.make_pipeline(cfg, seq_len=LM_TRAIN_SEQ,
+                           global_batch=LM_TRAIN_BATCH)
+    batches = [{k: torch.as_tensor(v, device=device)
+                for k, v in pipe.batch_at(i).items()}
+               for i in range(LM_MESH_STEPS)]
+    step_fn = P.make_train_step(cfg, model, P.constant(LM_TRAIN_LR))
+    state0 = (params, P.adamw_init(params))
+    out = {"phase": "lm_mesh", "arch": LM_TRAIN_ARCH,
+           "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ,
+           "remat_policy": cfg.remat_policy or "full",
+           "steps": LM_MESH_STEPS}
+    state, plain, plain_s = _train_run(P, cfg, step_fn, state0,
+                                       lambda i: batches[i], LM_MESH_STEPS)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = P.make_local_mesh(device=device)
+        specs = P.state_shardings(mesh, state0)
+        placed = P.place(state0, specs, mesh)
+        placed, meshed, mesh_s = _train_run(
+            P, cfg, P.sharded_step(step_fn, mesh, specs), placed,
+            lambda i: batches[i], LM_MESH_STEPS)
+        equal = all(torch.equal(state[0][k], placed[0][k].full_tensor())
+                    for k in state[0])
+        out.update(mesh=list(mesh.shape), plain_losses=plain,
+                   mesh_losses=meshed, losses_equal=plain == meshed,
+                   params_equal=equal,
+                   plain_s_per_step=statistics.median(plain_s[1:]),
+                   mesh_s_per_step=statistics.median(mesh_s[1:]),
+                   plain_first_step_s=plain_s[0],
+                   mesh_first_step_s=mesh_s[0])
+    finally:
+        dist.destroy_process_group()
+    del state, placed
+    torch.cuda.empty_cache()
+    refused = {}
+    for flag, need in (("--production-mesh", "256"), ("--multi-pod", "512")):
+        try:
+            P.train_main(["--arch", LM_TRAIN_ARCH, "--steps", "1", flag,
+                          "--device", "cuda"])
+            refused[flag] = "no error"
+        except ValueError as exc:
+            refused[flag] = str(exc) if need in str(exc) else f"wrong: {exc}"
+    out.update(refused=refused, group_left=dist.is_initialized(),
+               launches={k: v for k, v in P.ops.launch_counts().items()
+                         if v})
+    print(json.dumps(out), flush=True)
+
+
+def _child(args: list, timeout: int) -> tuple:
+    """A child process of this script or the port, from the checkout's
+    root; (return code, stdout, stderr)."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, *args], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=timeout)
+    return out.returncode, out.stdout, out.stderr
+
+
+def lm_mesh_path() -> None:
+    """The ``lm_mesh`` line from :func:`lm_mesh_child` in its own process;
+    fails unless the mesh's losses and parameters equal the plain step's,
+    both flags raise their ``ValueError``, no group is left and no
+    kernel launched."""
+    rc, stdout, stderr = _child([str(Path(__file__).resolve()), "--lm-mesh"],
+                                900)
+    lines = [json.loads(s) for s in stdout.splitlines() if s.startswith("{")]
+    if rc != 0 or not lines:
+        print(stderr[-4000:], file=sys.stderr)
+        raise AssertionError(f"lm_mesh: the child failed (rc {rc})")
+    line = lines[-1]
+    log(line)
+    ok = (line["losses_equal"] and line["params_equal"]
+          and all(not v.startswith(("no error", "wrong"))
+                  for v in line["refused"].values())
+          and not line["group_left"] and not line["launches"])
+    if not ok:
+        raise AssertionError(f"lm_mesh: {line}")
+
+
+def lm_dryrun_path() -> None:
+    """Each ``LM_DRYRUN_CELLS`` cell by ``python -m
+    repro_torch.launch.dryrun`` with ``--device cuda`` and again with
+    ``--device cpu``, each in its own process (a fake 256-rank group);
+    fails unless both are OK and their JSONs equal in every field but
+    ``LM_DRYRUN_FREE``."""
+    art = ROOT / "artifacts" / "dryrun_torch"
+    for arch, shape in LM_DRYRUN_CELLS:
+        runs = {}
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            rc, stdout, stderr = _child(
+                ["-m", "repro_torch.launch.dryrun", "--arch", arch,
+                 "--shape", shape, "--device", device], 900)
+            record = json.loads(
+                (art / f"{arch}__{shape}__16x16.json").read_text())
+            runs[device] = (rc, record, time.perf_counter() - t0)
+            if rc != 0:
+                print(stderr[-4000:], file=sys.stderr)
+        same = {k: v for k, v in runs["cuda"][1].items()
+                if k not in LM_DRYRUN_FREE}
+        other = {k: v for k, v in runs["cpu"][1].items()
+                 if k not in LM_DRYRUN_FREE}
+        differ = sorted(k for k in set(same) | set(other)
+                        if same.get(k) != other.get(k))
+        cuda = runs["cuda"][1]
+        log({"phase": "lm_dryrun", "arch": arch, "shape": shape,
+             "mesh": cuda["mesh"],
+             "status": {d: r[1]["status"] for d, r in runs.items()},
+             "wall_s": {d: r[2] for d, r in runs.items()},
+             "step_s": {d: r[1].get("step_s") for d, r in runs.items()},
+             "differ": differ, "memory": cuda.get("memory"),
+             "flops_per_device": cuda.get("flops_per_device"),
+             "collective_bytes_per_device":
+                 cuda.get("collective_bytes_per_device"),
+             "error": {d: r[1].get("error") for d, r in runs.items()
+                       if r[1]["status"] != "OK"}})
+        if any(r[0] != 0 or r[1]["status"] != "OK" for r in runs.values()) \
+                or differ:
+            raise AssertionError(f"lm_dryrun {arch} {shape}: status "
+                                 f"{[r[1]['status'] for r in runs.values()]}"
+                                 f", fields differing {differ}")
+
+
+# ---------------------------------------------------------------------------
 # phase 5: timing helpers
 # ---------------------------------------------------------------------------
 
@@ -3092,8 +3269,11 @@ def port():
     from repro_torch.checkpoint import latest_step, restore_checkpoint
     from repro_torch.checkpoint.checkpointer import flatten
     from repro_torch.data import make_pipeline
+    from repro_torch.distributed.sharding import place
+    from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.launch.train import main as train_main
-    from repro_torch.launch.train import make_train_step
+    from repro_torch.launch.train import (make_train_step, sharded_step,
+                                          state_shardings)
     from repro_torch.optim import adamw_init, constant, cosine_with_warmup
     from repro_torch.runtime import (FaultTolerantRunner, RunnerConfig,
                                      SimulatedFailure)
@@ -3185,6 +3365,8 @@ def main() -> None:
     lm = lm_serve_path(P)
     lm_pattern = lm_pattern_serve_path(P)
     lm_train = lm_train_path(P)
+    lm_mesh_path()
+    lm_dryrun_path()
     launches = {k: n + presampled[k] + tuned[k] + incremental[k] + serving[k]
                 + spmd[k] + clis[k] + lm[k] + lm_pattern[k] + lm_train[k]
                 for k, n in launches.items()}
@@ -3209,4 +3391,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--lm-mesh"]:
+        lm_mesh_child()
+    else:
+        main()

@@ -4,9 +4,10 @@
     mid-save never corrupts the latest restorable step;
   * async: serialization runs on a background thread, so the train loop
     only waits for the device-to-host copy of the state;
-  * elastic: every leaf is stored whole (one ``.npy`` each) with the
-    tree's leaf paths, dtypes and shapes in a manifest, so a restart may
-    place the state on another device;
+  * elastic: every leaf is stored whole (one ``.npy`` each; a DTensor
+    as its ``full_tensor()``) with the tree's leaf paths, dtypes and
+    shapes in a manifest, so a restart may place the state on another
+    device or another mesh shape;
   * retention: keeps the last ``keep`` steps, deletes older ones.
 
 A tree is nested dicts, lists, tuples and named tuples (the train state
@@ -58,7 +59,16 @@ def unflatten(like, leaves):
     return build(like)
 
 
+def _whole(leaf):
+    """A DTensor as its full tensor (a collective: every rank calls it),
+    anything else as it is."""
+    from torch.distributed.tensor import DTensor
+
+    return leaf.full_tensor() if isinstance(leaf, DTensor) else leaf
+
+
 def _to_numpy(leaf) -> tuple[np.ndarray, str]:
+    leaf = _whole(leaf)
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -137,6 +147,7 @@ def restore_checkpoint(ckpt_dir: str | Path, step: int, like_tree):
 
 
 def _host_copy(leaf):
+    leaf = _whole(leaf)
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True)
     return np.array(leaf)
@@ -170,11 +181,17 @@ class Checkpointer:
             self._error = exc
 
     def maybe_save(self, step: int, tree) -> bool:
+        """Every rank copies the state to the host (a DTensor whole);
+        rank 0 of a process group writes it."""
+        import torch.distributed as dist
+
         if step % self.every:
             return False
         self.wait()
         host_tree = unflatten(tree, (_host_copy(leaf)
                                      for _, leaf in flatten(tree)))
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return True
         self._thread = threading.Thread(target=self._save,
                                         args=(step, host_tree), daemon=True)
         self._thread.start()

@@ -11,8 +11,18 @@ pipeline, AdamW + cosine schedule, fault-tolerant runner
 compression.  The train state is ``(params, AdamWState)``, ``params`` a
 dict of tensors by parameter name; a step runs ``loss_fn`` on them
 through ``torch.func.functional_call`` and returns a new state, as pure
-as the reference's jitted step.  One device: the production mesh is the
-next slice of the port.
+as the reference's jitted step.
+
+The mesh is the reference's: ``--production-mesh``/``--multi-pod`` the
+(16, 16)/(2, 16, 16) mesh over the default process group (256/512
+ranks, e.g. one process a GPU under ``torchrun``), else a local
+(ranks, 1) mesh; without a group the driver starts a one-rank group
+itself and ends it on exit.  On a mesh of more than one rank the
+parameters, AdamW state and batches are DTensors placed by
+``distributed.sharding``'s rules and the step runs on them
+(:func:`sharded_step`); on one rank the rules are checked against every
+shape and the tensors stay plain (DTensor on one rank only adds host
+dispatch).
 """
 from __future__ import annotations
 
@@ -25,6 +35,10 @@ from torch.func import functional_call
 from repro_torch._device import resolve_device
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.data import make_pipeline
+from repro_torch.distributed.sharding import (batch_shardings, check_specs,
+                                              opt_shardings, param_shardings,
+                                              place, to_placements, zip_map)
+from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
 from repro_torch.models import init_params, loss_fn
 from repro_torch.optim import (adamw_init, adamw_update, compress_grads,
                                cosine_with_warmup, decompress_grads)
@@ -68,6 +82,50 @@ def make_train_step(cfg, model, lr_sched, grad_compress: bool = False):
     return train_step
 
 
+def state_shardings(mesh, state, zero1: bool = False) -> tuple:
+    """The specs of a train state ``(params, AdamWState)`` by the rules."""
+    params, opt = state
+    return (param_shardings(mesh, params),
+            opt_shardings(mesh, opt, zero1=zero1))
+
+
+def sharded_step(step_fn, mesh, specs):
+    """``step_fn`` on DTensors: the state, placed by ``specs`` (see
+    :func:`state_shardings` and ``sharding.place``), stays so across
+    steps; each batch of full tensors is placed by ``batch_shardings``.
+    The model's own plain tensors (positions, masks, RoPE tables) join
+    the DTensors as replicated (``implicit_replication``).  The new state
+    is redistributed back to ``specs`` (a pending sum is reduced there)
+    and the loss returned whole."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    def to_specs(t, spec):
+        return t.redistribute(mesh, to_placements(spec, mesh))
+
+    def step(state, batch):
+        batch = place(batch, batch_shardings(mesh, batch), mesh)
+        with implicit_replication():
+            state, metrics = step_fn(state, batch)
+        state = zip_map(to_specs, state, specs)
+        return state, {k: v.full_tensor() if isinstance(v, DTensor) else v
+                       for k, v in metrics.items()}
+
+    return step
+
+
+def _own_group(device: torch.device) -> bool:
+    """Starts a one-rank process group (nccl on a card, gloo on the CPU)
+    unless one exists; True if it started one."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return False
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1)
+    return True
+
+
 def main(argv=None) -> list:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b")
@@ -87,12 +145,21 @@ def main(argv=None) -> list:
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    if args.production_mesh or args.multi_pod:
-        raise NotImplementedError(
-            "--production-mesh/--multi-pod: the device mesh (launch/mesh.py, "
-            "distributed/sharding.py) is the next slice of the port; this "
-            "driver trains on one device")
     device = resolve_device(args.device)
+    own_group = _own_group(device)
+    try:
+        return _train(args, device)
+    finally:
+        if own_group:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _train(args, device: torch.device) -> list:
+    mesh = (make_production_mesh(multi_pod=args.multi_pod, device=device)
+            if args.production_mesh or args.multi_pod
+            else make_local_mesh(device=device))
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
@@ -104,6 +171,15 @@ def main(argv=None) -> list:
     sched = cosine_with_warmup(args.lr, warmup_steps=max(args.steps // 20, 1),
                                total_steps=args.steps)
     step_fn = make_train_step(cfg, model, sched, args.grad_compress)
+    state = (params, opt)
+    specs = state_shardings(mesh, state)
+    if mesh.size() > 1:
+        state = place(state, specs, mesh)
+        step_fn = sharded_step(step_fn, mesh, specs)
+    else:
+        check_specs(state, specs, mesh)
+        check_specs(pipe.batch_at(0), batch_shardings(mesh, pipe.batch_at(0)),
+                    mesh)
     runner = FaultTolerantRunner(RunnerConfig(
         total_steps=args.steps, ckpt_dir=args.ckpt_dir,
         ckpt_every=args.ckpt_every,
@@ -126,7 +202,7 @@ def main(argv=None) -> list:
         return state, metrics
 
     state, step, metrics = runner.run(
-        step_and_log, (params, opt), batch_at,
+        step_and_log, state, batch_at,
         start_step=None if args.resume else 0)
 
     print(f"done: {step} steps, final loss {losses[-1]:.4f} "

@@ -16,10 +16,12 @@ import math
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.sampling import PRIME_NUM
-from repro_torch.models.layers import (apply_rope, dense_init, dtype_of,
-                                       einsum, rms_norm, zeros)
+from repro_torch.models.layers import (apply_rope, contiguous_grads,
+                                       dense_init, dtype_of, einsum,
+                                       rms_norm, zeros)
 
 NEG_INF = -1e30
 
@@ -125,7 +127,11 @@ def _qkv(p, x, cfg, positions):
 
 def _attend(q, k, v, mask):
     """Grouped attention core.  q [B,Sq,H,D]; k,v [B,Sk,KV,D];
-    mask [B|1,Sq,Sk] bool (True = attend).  Returns [B,Sq,KV,G,D]."""
+    mask [B|1,Sq,Sk] bool (True = attend).  Returns [B,Sq,H,D]."""
+    if isinstance(q, DTensor):
+        if any(pl.is_shard(1) for pl in k.placements):
+            return _attend_over_shards(q, k, v, mask)
+        return _attend_local(q, k, v, mask)
     B, Sq, H, D = q.shape
     KV = k.shape[2]
     qg = q.reshape(B, Sq, KV, H // KV, D)
@@ -133,7 +139,86 @@ def _attend(q, k, v, mask):
     scores = scores / math.sqrt(D)
     scores = scores.masked_fill(~mask[:, None, None], NEG_INF)
     w = torch.softmax(scores, dim=-1).to(v.dtype)
-    return torch.einsum("bngqk,bknd->bqngd", w, v)
+    return torch.einsum("bngqk,bknd->bqngd", w, v).flatten(2, 3)
+
+
+def _head_block(q) -> tuple[list, int, int]:
+    """(q's placements with its batch over the DP axes and its heads over
+    ``model`` where they divide, the first head of this rank's block, the
+    number of ranks the heads are split over)."""
+    from repro_torch.distributed.sharding import (axes_size, axis_names,
+                                                  dp_axes, to_placements)
+
+    mesh = q.device_mesh
+    names = axis_names(mesh)
+    B, _, H, _ = q.shape
+    dp = dp_axes(mesh)
+    spec = [dp if B % axes_size(mesh, dp) == 0 else None, None, None, None]
+    h0, n = 0, 1
+    if "model" in names and H % axes_size(mesh, "model") == 0:
+        spec[2] = "model"
+        m = names.index("model")
+        n = mesh.size(m)
+        h0 = mesh.get_coordinate()[m] * (H // n)
+    return to_placements(spec, mesh), h0, n
+
+
+def _attend_block(q, k, v, mask, h0: int, group: int):
+    """:func:`_attend` on one rank's block of heads ``h0 ..``; ``group``:
+    the heads a K/V head serves, where k/v hold every K/V head (0 where
+    they hold the block's own), of which the block takes its own."""
+    if group:
+        H = q.shape[2]
+        if group % H and H % group:
+            raise ValueError(f"a block of {H} heads straddles K/V groups of "
+                             f"{group}")
+        g0 = h0 // group
+        k, v = (t[:, :, g0:g0 + max(H // group, 1)] for t in (k, v))
+    return _attend(q, k, v, mask)
+
+
+def _attend_local(q, k, v, mask):
+    """:func:`_attend` on DTensors whose sequence is whole: each rank
+    attends its own batch and heads (``local_map``).  K/V are split with
+    the heads where their count divides the ranks, else replicated and
+    each rank takes its heads' groups -- their gradient then pending over
+    ``model``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    q_pl, h0, n = _head_block(q)
+    H, KV = q.shape[2], k.shape[2]
+    split = n > 1 and KV % n == 0
+    kv_pl = [(Shard(2) if split else Replicate()) if pl.is_shard(2) else pl
+             for pl in q_pl]
+    kv_grad = [Partial() if (pl.is_shard(2) and not split) else kv
+               for pl, kv in zip(q_pl, kv_pl)]
+    group = 0 if (n == 1 or split) else H // KV
+    fn = local_map(
+        contiguous_grads(_attend_block), out_placements=q_pl,
+        in_placements=(q_pl, kv_pl, kv_pl, None, None, None),
+        in_grad_placements=(q_pl, kv_grad, kv_grad, None, None, None),
+        device_mesh=q.device_mesh, redistribute_inputs=True)
+    return fn(q, k, v, mask, h0, group)
+
+
+def _attend_over_shards(q, k, v, mask):
+    """:func:`_attend` where the cache's sequence axis is sharded (decode):
+    the heads are gathered (q is one position) and each head attends its
+    group's K/V expanded to H heads, so no product merges two sharded
+    dims; DTensor keeps the positions sharded up to the softmax."""
+    from torch.distributed.tensor import Replicate
+
+    B, Sq, H, D = q.shape
+    G = H // k.shape[2]
+    q = q.redistribute(q.device_mesh, [Replicate() if pl.is_shard(2) else pl
+                                       for pl in q.placements])
+    k, v = (t.unsqueeze(3).expand(*t.shape[:3], G, D).flatten(2, 3)
+            for t in (k, v))
+    scores = einsum("bqhd,bkhd->bhqk", q, k, torch.float32) / math.sqrt(D)
+    scores = scores.masked_fill(~mask[:, None], NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v)
 
 
 def causal_mask(Sq: int, Sk: int, q_offset: int, window: int | None = None,
@@ -154,7 +239,38 @@ def attention(p, x, cfg, positions, *, window=None):
     S = x.shape[1]
     mask = causal_mask(S, S, 0, window=window, device=x.device)
     out = _attend(q, k, v, mask)
-    return _project_out(out.flatten(2, 3), p.wo), (k, v)
+    return _project_out(out, p.wo), (k, v)
+
+
+def write_position(cache: torch.Tensor, pos: int, value: torch.Tensor
+                   ) -> None:
+    """``cache[:, pos] = value`` (cache [B, S, ...], value [B, ...]).  On a
+    DTensor cache whose sequence axis is sharded, only the block that
+    holds ``pos`` is written, by the ranks that hold it: DTensor's own
+    item assignment would gather the whole sequence axis first."""
+    if not isinstance(cache, DTensor) or not any(
+            pl.is_shard(1) for pl in cache.placements):
+        cache[:, pos] = value
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = cache.device_mesh
+    coord = mesh.get_coordinate()
+    blocks, mine = 1, 0
+    placements = []
+    for i, pl in enumerate(cache.placements):
+        if pl.is_shard(1):
+            blocks *= mesh.size(i)
+            mine = mine * mesh.size(i) + coord[i]
+            placements.append(Replicate())
+        elif pl.is_shard() and pl.dim > 1:
+            placements.append(Shard(pl.dim - 1))
+        else:
+            placements.append(pl)
+    value = value.redistribute(mesh, placements)
+    n = cache.shape[1] // blocks
+    if pos // n == mine:
+        cache.to_local()[:, pos % n] = value.to_local()
 
 
 def quantize_kv(t: torch.Tensor, bits: int = 8):
@@ -196,13 +312,13 @@ def attention_decode(p, x, cache_k, cache_v, cache_len: int, cfg, *,
         bits = cfg.kv_quant_bits or 8
         kq, ks = quantize_kv(k_new, bits)
         vq, vs = quantize_kv(v_new, bits)
-        cache_k[:, write_pos] = kq[:, 0]
-        cache_v[:, write_pos] = vq[:, 0]
-        cache_ks[:, write_pos] = ks[:, 0]
-        cache_vs[:, write_pos] = vs[:, 0]
-    else:
-        cache_k[:, write_pos] = k_new[:, 0]       # cast as the reference's
-        cache_v[:, write_pos] = v_new[:, 0]       # astype(cache dtype)
+        write_position(cache_k, write_pos, kq[:, 0])
+        write_position(cache_v, write_pos, vq[:, 0])
+        write_position(cache_ks, write_pos, ks[:, 0])
+        write_position(cache_vs, write_pos, vs[:, 0])
+    else:   # cast to the cache dtype, as the reference's astype
+        write_position(cache_k, write_pos, k_new[:, 0])
+        write_position(cache_v, write_pos, v_new[:, 0])
 
     k, v, ks_r, vs_r = cache_k, cache_v, cache_ks, cache_vs
     idx = _sampled_positions(cfg, S_max, x.device)
@@ -224,7 +340,7 @@ def attention_decode(p, x, cache_k, cache_v, cache_len: int, cfg, *,
         if window is not None:
             valid &= kpos > cache_len - window
     out = _attend(q, k, v, valid[:, None, :])
-    return _project_out(out.flatten(2, 3), p.wo)
+    return _project_out(out, p.wo)
 
 
 # ---------------------------------------------------------------------------
@@ -273,20 +389,48 @@ def _mla_scale(cfg) -> float:
 
 def mla_attention(p, x, cfg, positions):
     """Full-sequence MLA (prefill), K/V expanded explicitly.  Returns
-    (out, (c_kv, k_pe) latent cache)."""
+    (out, (c_kv, k_pe) latent cache); on DTensors each rank attends its
+    own batch rows and heads (:func:`_sharded_mla_core`)."""
     S = x.shape[1]
     q_nope, q_pe = _mla_q(p, x, cfg, positions)
     c_kv, k_pe = _mla_latent(p, x, cfg, positions)
     k_nope = einsum("bsc,chd->bshd", c_kv, p.w_uk)
     v = einsum("bsc,chd->bshd", c_kv, p.w_uv)
-    scores = (einsum("bqhd,bkhd->bhqk", q_nope, k_nope, torch.float32) +
-              einsum("bqhd,bkd->bhqk", q_pe, k_pe, torch.float32)
-              ) * _mla_scale(cfg)
     mask = causal_mask(S, S, 0, device=x.device)
+    core = _sharded_mla_core if isinstance(q_nope, DTensor) else _mla_core
+    out = core(q_nope, q_pe, k_nope, k_pe, v, mask, _mla_scale(cfg))
+    return _project_out(out, p.wo), (c_kv, k_pe)
+
+
+def _mla_core(q_nope, q_pe, k_nope, k_pe, v, mask, scale: float):
+    """MLA's attention over expanded K/V: q_nope, k_nope [B,S,H,dn], q_pe
+    [B,S,H,dr], k_pe [B,S,dr] (shared by the heads), v [B,S,H,dv].
+    Returns [B,S,H,dv]."""
+    scores = (einsum("bqhd,bkhd->bhqk", q_nope, k_nope, torch.float32) +
+              einsum("bqhd,bkd->bhqk", q_pe, k_pe, torch.float32)) * scale
     scores = scores.masked_fill(~mask[:, None], NEG_INF)
     w = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.einsum("bhqk,bkhd->bqhd", w, v)
-    return _project_out(out, p.wo), (c_kv, k_pe)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v)
+
+
+def _sharded_mla_core(q_nope, q_pe, k_nope, k_pe, v, mask, scale: float):
+    """:func:`_mla_core` on DTensors, each rank on its own batch rows and
+    heads (``local_map``); ``k_pe``, shared by the heads, has its
+    gradient pending over ``model`` where the heads are split."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    h_pl, _, _ = _head_block(q_nope)
+    mesh = q_nope.device_mesh
+    pe_pl = [Replicate() if pl.is_shard(2) else pl for pl in h_pl]
+    pe_grad = [Partial() if pl.is_shard(2) else pe
+               for pl, pe in zip(h_pl, pe_pl)]
+    fn = local_map(
+        contiguous_grads(_mla_core), out_placements=h_pl,
+        in_placements=(h_pl, h_pl, h_pl, pe_pl, h_pl, None, None),
+        in_grad_placements=(h_pl, h_pl, h_pl, pe_grad, h_pl, None, None),
+        device_mesh=mesh, redistribute_inputs=True)
+    return fn(q_nope, q_pe, k_nope, k_pe, v, mask, scale)
 
 
 def mla_decode(p, x, cache_c, cache_pe, cache_len: int, cfg):
@@ -299,8 +443,8 @@ def mla_decode(p, x, cache_c, cache_pe, cache_len: int, cfg):
     positions = torch.full((B, 1), cache_len, device=x.device)
     q_nope, q_pe = _mla_q(p, x, cfg, positions)
     c_new, pe_new = _mla_latent(p, x, cfg, positions)
-    cache_c[:, cache_len] = c_new[:, 0]
-    cache_pe[:, cache_len] = pe_new[:, 0]
+    write_position(cache_c, cache_len, c_new[:, 0])
+    write_position(cache_pe, cache_len, pe_new[:, 0])
 
     c, pe = cache_c, cache_pe
     idx = _sampled_positions(cfg, S_max, x.device)

@@ -9,12 +9,14 @@ product runs in float32 (JAX promotes, ``torch`` refuses), see
 """
 from __future__ import annotations
 
+import functools
 import math
 from collections.abc import Mapping
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 
 class ParamTree(nn.Module):
@@ -93,6 +95,33 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     x1, x2 = x.float().chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
                      dim=-1).to(x.dtype)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``F.softplus``.  On a DTensor the gradient is made contiguous on its
+    way back: ``aten.softplus_backward``'s DTensor result claims the
+    input's strides while its local result takes the gradient's layout,
+    and a later view (a matmul's backward) then fails on the local
+    tensor."""
+    y = F.softplus(x)
+    if isinstance(y, DTensor) and y.requires_grad:
+        y.register_hook(torch.Tensor.contiguous)
+    return y
+
+
+def contiguous_grads(fn):
+    """``fn`` whose tensor arguments pass their gradients back contiguous.
+    For the blocks run under ``local_map``: a local gradient leaves as a
+    DTensor that claims the forward tensor's (contiguous) strides, and a
+    later view of a transposed one fails on the local tensor."""
+    @functools.wraps(fn)
+    def wrapped(*args):
+        for a in args:
+            if isinstance(a, torch.Tensor) and a.requires_grad:
+                a.register_hook(torch.Tensor.contiguous)
+        return fn(*args)
+
+    return wrapped
 
 
 def init_mlp(gen: torch.Generator, cfg, d_ff: int | None = None) -> dict:

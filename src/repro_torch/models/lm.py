@@ -39,6 +39,7 @@ import functools
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
@@ -49,8 +50,9 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
-from repro_torch.models.layers import (ParamTree, dense_init, dtype_of,
-                                       init_mlp, mlp, rms_norm, zeros)
+from repro_torch.models.layers import (ParamTree, contiguous_grads,
+                                       dense_init, dtype_of, init_mlp, mlp,
+                                       rms_norm, zeros)
 
 #: the sequence axis of every attention cache entry, counted from the end
 #: (the same in a uniform, grouped or per-block cache)
@@ -246,10 +248,49 @@ def _remat(body, cfg: ArchConfig):
                              context_fn=context_fn)
 
 
+def _embed_block(table, tokens, v0: int):
+    """One rank's rows ``v0 ..`` of the embedding table looked up for its
+    tokens: zero for a token outside them."""
+    ids = tokens - v0
+    hit = (ids >= 0) & (ids < table.shape[0])
+    return table[ids.clamp(0, table.shape[0] - 1)] * hit[..., None]
+
+
+def _sharded_embed(table, tokens):
+    """The lookup on DTensors, one rank a block (``local_map``): each rank
+    looks its own tokens (batch over the DP axes) up in the rows it holds
+    (vocabulary over ``model`` where the rules shard it), the sum over
+    ``model`` pending; the table's gradient is pending over the DP axes."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed.sharding import batch_shardings, to_placements
+
+    mesh = table.device_mesh
+    t_pl = to_placements(batch_shardings(mesh, {"t": tokens})["t"], mesh)
+    out_pl = [Partial() if pl.is_shard() else t
+              for pl, t in zip(table.placements, t_pl)]
+    grad_pl = [Partial() if t.is_shard() else pl
+               for pl, t in zip(table.placements, t_pl)]
+    v0 = 0
+    for i, pl in enumerate(table.placements):
+        if pl.is_shard(0):
+            v0 = v0 * mesh.size(i) + mesh.get_coordinate()[i]
+    v0 *= table.to_local().shape[0]
+    fn = local_map(contiguous_grads(_embed_block), out_placements=out_pl,
+                   in_placements=(table.placements, t_pl, None),
+                   in_grad_placements=(grad_pl, t_pl, None),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(table, tokens, v0)
+
+
 def _embed(model: LM, cfg: ArchConfig, tokens=None, embeds=None):
     if embeds is not None:
         return embeds.to(dtype_of(cfg))
-    x = model.embed[tokens]
+    if isinstance(model.embed, DTensor):
+        x = _sharded_embed(model.embed, tokens)
+    else:
+        x = model.embed[tokens]
     if cfg.tie_embeddings:  # gemma convention: sqrt(d_model) in x's dtype
         scale = torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32)
         x = x * float(scale.to(x.dtype))
@@ -270,7 +311,7 @@ def _uniform_layer(lp, x, cfg: ArchConfig, positions):
     else:
         a, kv = attn_mod.attention(lp.attn, h, cfg, positions,
                                    window=cfg.sliding_window)
-    x = x + a
+    x = _residual(x + a, cfg)
     h = rms_norm(x, lp.ln2, cfg.norm_eps)
     if cfg.moe is not None:
         f, aux = moe_mod.moe_mlp(lp.moe, h, cfg, cfg.act)
@@ -286,15 +327,15 @@ def _shared_block(model: LM, x, norm, cfg: ArchConfig, positions):
     h = rms_norm(x, norm, cfg.norm_eps)
     a, kv = attn_mod.attention(model.shared_attn, h, cfg, positions,
                                window=cfg.sliding_window)
-    y = a + mlp(model.shared_mlp, rms_norm(x + a, norm, cfg.norm_eps),
-                cfg.act)
+    y = a + mlp(model.shared_mlp,
+                rms_norm(_residual(x + a, cfg), norm, cfg.norm_eps), cfg.act)
     return y, kv
 
 
 def _mamba_layer(mp, x, norm, cfg: ArchConfig):
     y, state, conv = ssm_mod.mamba_block(mp, rms_norm(x, norm, cfg.norm_eps),
                                          cfg)
-    return x + y, state, conv
+    return _residual(x + y, cfg), state, conv
 
 
 def _group(model: LM, gp, x, cfg: ArchConfig, positions):
@@ -321,6 +362,25 @@ def _stack_mamba(states: list, convs: list) -> dict:
                      for k in convs[0]}}
 
 
+def _residual(x, cfg: ArchConfig):
+    """On a mesh, the residual stream [B, S, d] at each layer boundary:
+    its batch over the DP axes and replicated over ``model`` (a pending
+    sum reduced there), as tensor parallelism keeps it -- left to itself,
+    DTensor's op-by-op choices drift (one drifted to the global batch on
+    every rank).  With ``cfg.activation_dp`` the pattern families' stream
+    has its batch over ("data", "model"), pure DP: the reference's
+    ``_pin_dp`` constraint."""
+    if not isinstance(x, DTensor):
+        return x
+    from repro_torch.distributed.sharding import batch_shardings, to_placements
+
+    mesh = x.device_mesh
+    spec = ((("data", "model"), None, None)
+            if cfg.activation_dp and cfg.block_pattern is not None
+            else batch_shardings(mesh, {"x": x})["x"])
+    return x.redistribute(mesh, to_placements(spec, mesh))
+
+
 def forward(model: LM, cfg: ArchConfig, tokens=None, embeds=None,
             want_cache: bool = False, remat: bool = True):
     """Full-sequence pass over ``tokens`` [B,S] or ``embeds`` [B,S,d].
@@ -328,7 +388,7 @@ def forward(model: LM, cfg: ArchConfig, tokens=None, embeds=None,
     holds the prompt's K/V (or MLA latents) in bfloat16 and, for the
     recurrent blocks, their final states.  ``remat`` checkpoints each
     uniform layer and each group while gradients are recorded."""
-    x = _embed(model, cfg, tokens, embeds)
+    x = _residual(_embed(model, cfg, tokens, embeds), cfg)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device).expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -339,6 +399,7 @@ def forward(model: LM, cfg: ArchConfig, tokens=None, embeds=None,
         kvs = []
         for lp in model.layers:
             x, layer_aux, kv = layer(lp, x, cfg, positions)
+            x = _residual(x, cfg)
             if layer_aux is not None:
                 aux = aux + layer_aux
             if want_cache:
@@ -355,6 +416,7 @@ def forward(model: LM, cfg: ArchConfig, tokens=None, embeds=None,
         outs = []
         for gp in model.groups:
             x, states, convs, kv = group(model, gp, x, cfg, positions)
+            x = _residual(x, cfg)
             outs.append((states, convs, kv))
         tail_states, tail_convs = [], []
         if hasattr(model, "tail"):
@@ -392,7 +454,7 @@ def forward(model: LM, cfg: ArchConfig, tokens=None, embeds=None,
         else:  # shared_attn
             y, kv = _shared_block(model, x, norm, cfg, positions)
             entry = {"k": _bf16(kv[0]), "v": _bf16(kv[1])}
-        x = x + y
+        x = _residual(x + y, cfg)
         entries.append(entry)
     return (_unembed(model, cfg, x), aux,
             {"blocks": entries} if want_cache else None)
@@ -435,7 +497,7 @@ def decode_step(model: LM, cfg: ArchConfig, cache: dict, tokens=None,
     position ``cache_len`` (a Python int).  Writes each layer's new K/V,
     state and conv cache into ``cache`` in place.  Returns (logits
     float32 [B,1,V], cache)."""
-    x = _embed(model, cfg, tokens, embeds)
+    x = _residual(_embed(model, cfg, tokens, embeds), cfg)
     if _is_uniform(cfg):
         for i, lp in enumerate(model.layers):
             h = rms_norm(x, lp.ln1, cfg.norm_eps)
@@ -457,7 +519,7 @@ def decode_step(model: LM, cfg: ArchConfig, cache: dict, tokens=None,
                 f, _ = moe_mod.moe_mlp(lp.moe, h, cfg, cfg.act)
             else:
                 f = mlp(lp.mlp, h, cfg.act)
-            x = x + f
+            x = _residual(x + f, cfg)
         return _unembed(model, cfg, x), cache
 
     if _is_grouped(cfg):
@@ -486,20 +548,77 @@ def decode_step(model: LM, cfg: ArchConfig, cache: dict, tokens=None,
             y, state = xlstm_mod.mlstm_block(
                 bp, rms_norm(x, norm, cfg.norm_eps), cfg, state=ck["C"])
             ck["C"].copy_(state)
-            x = x + y
+            x = _residual(x + y, cfg)
         else:  # slstm
             y, state = xlstm_mod.slstm_block(
                 bp, rms_norm(x, norm, cfg.norm_eps), cfg,
                 state=(ck["c"], ck["n"], ck["h"]))
             for name, t in zip("cnh", state):
                 ck[name].copy_(t)
-            x = x + y
+            x = _residual(x + y, cfg)
     return _unembed(model, cfg, x), cache
 
 
 # ---------------------------------------------------------------------------
 # loss / specs
 # ---------------------------------------------------------------------------
+
+def _vocab_split(logits) -> bool:
+    """Whether ``logits`` is a DTensor with its vocabulary split over more
+    than one rank."""
+    return isinstance(logits, DTensor) and any(
+        pl.is_shard(logits.ndim - 1) and logits.device_mesh.size(i) > 1
+        for i, pl in enumerate(logits.placements))
+
+
+def _picked_block(logits, labels, v0: int):
+    """One rank's logits of the labels among its vocabulary ``v0 ..``,
+    zero elsewhere."""
+    ids = labels - v0
+    hit = (ids >= 0) & (ids < logits.shape[-1])
+    picked = logits.gather(-1, ids.clamp(0, logits.shape[-1] - 1)[..., None])
+    return picked[..., 0] * hit
+
+
+def _sharded_nll(logits, labels):
+    """-log softmax(logits)[label] with the vocabulary left split: each
+    rank takes the max and the sum of exponentials of its own logits and
+    picks the labels it holds (``local_map``), and only those [B, S]
+    partials cross the ranks -- never the whole [B, S, V], which
+    ``log_softmax``, ``amax`` and ``gather`` on a split dim would
+    gather."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = logits.device_mesh
+    v = logits.ndim - 1
+    l_pl = list(logits.placements)
+    row_pl = [pl if pl.is_shard() and pl.dim < v else Replicate()
+              for pl in l_pl]
+
+    def over_vocab(op):
+        return [Partial(op) if pl.is_shard(v) else r
+                for pl, r in zip(l_pl, row_pl)]
+
+    m = local_map(lambda t: t.detach().amax(-1, keepdim=True),
+                  out_placements=over_vocab("max"), in_placements=(l_pl,),
+                  device_mesh=mesh)(logits)
+    m = m.redistribute(mesh, row_pl)
+    sum_exp = local_map(
+        contiguous_grads(lambda t, mx: torch.exp(t - mx).sum(-1)),
+        out_placements=over_vocab("sum"), in_placements=(l_pl, row_pl),
+        device_mesh=mesh, redistribute_inputs=True)(logits, m)
+    v0 = 0
+    for i, pl in enumerate(l_pl):
+        if pl.is_shard(v):
+            v0 = v0 * mesh.size(i) + mesh.get_coordinate()[i]
+    v0 *= logits.to_local().shape[-1]
+    picked = local_map(
+        contiguous_grads(_picked_block), out_placements=over_vocab("sum"),
+        in_placements=(l_pl, row_pl, None), device_mesh=mesh,
+        redistribute_inputs=True)(logits, labels, v0)
+    return m[..., 0] + torch.log(sum_exp) - picked
+
 
 def loss_fn(model: LM, cfg: ArchConfig, batch: dict, aux_weight: float = 0.01):
     """Masked next-token cross entropy (labels < 0 are masked) plus
@@ -508,8 +627,11 @@ def loss_fn(model: LM, cfg: ArchConfig, batch: dict, aux_weight: float = 0.01):
     logits, aux, _ = forward(model, cfg, tokens=batch.get("tokens"),
                              embeds=batch.get("embeds"))
     labels = batch["labels"].long()
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    if _vocab_split(logits):
+        nll = _sharded_nll(logits, labels.clamp(min=0))
+    else:
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
     mask = (labels >= 0).float()
     ce = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return ce + aux_weight * aux

@@ -18,9 +18,11 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.attention import _project_heads, _project_out
-from repro_torch.models.layers import dense_init, dtype_of
+from repro_torch.models.layers import (contiguous_grads, dense_init,
+                                       dtype_of, softplus)
 
 
 def init_mamba(gen: torch.Generator, cfg) -> dict:
@@ -83,39 +85,13 @@ def chunk_scan(h0: torch.Tensor, chunk_decay: torch.Tensor,
     return h, torch.stack(before, dim=1)
 
 
-def mamba_block(p, x: torch.Tensor, cfg, state=None, conv_cache=None,
-                chunk: int = 128):
-    """x: [B, S, d] -> (y [B, S, d], final_state [B,H,hd,n] float32,
-    conv caches {x, B, C}).
-
-    ``conv_cache``: dict of {x, B, C} trailing contexts (decode) or None.
-    A one-token call with a ``state`` is the recurrent decode step; any
-    other call runs the chunked scan from ``state`` (zeros when None).
-    """
-    B, S, d = x.shape
-    inner = cfg.ssm_expand * d
-    n = cfg.ssm_state
-    H = cfg.num_heads
-    hd = inner // H
-
-    z = _project_heads(x, p.w_z)
-    xr = _project_heads(x, p.w_x)
-    Br = x @ p.w_B
-    Cr = x @ p.w_C
-    dt_raw = x @ p.w_dt
-
-    cc = conv_cache or {}
-    xr, cx = _causal_conv(xr, p.conv_x, cc.get("x"))
-    Br, cB = _causal_conv(Br, p.conv_B, cc.get("B"))
-    Cr, cC = _causal_conv(Cr, p.conv_C, cc.get("C"))
-    new_conv = {"x": cx, "B": cB, "C": cC}
-
-    dt = F.softplus(dt_raw.float() + p.dt_bias)                   # [B,S,H]
-    A = -torch.exp(p.A_log)                                       # [H]
-    xh = xr.float()                                               # [B,S,H,hd]
-    Bf = Br.float()
-    Cf = Cr.float()
-
+def _ssd(xh, dt, A, Bf, Cf, state, chunk: int):
+    """The selective scan: xh [B,S,H,hd], dt [B,S,H], A [H], Bf/Cf [B,S,n]
+    float32, ``state`` [B,H,hd,n] or None.  A one-token call with a state
+    is the recurrent decode step; any other call the chunked SSD.
+    Returns (y [B,S,H,hd], the final state)."""
+    B, S, H, hd = xh.shape
+    n = Bf.shape[-1]
     if S == 1 and state is not None:
         decay = torch.exp(dt[:, 0] * A)                           # [B,H]
         upd = ((dt[:, 0, :, None] * xh[:, 0])[..., None]
@@ -138,7 +114,7 @@ def mamba_block(p, x: torch.Tensor, cfg, state=None, conv_cache=None,
         scores = Cc @ Bc.transpose(-1, -2)                        # [B,c,Q,K]
         Ldec = _decays(cum_h[..., :, None] - cum_h[..., None, :])  # [B,c,H,Q,K]
         tri = torch.tril(torch.ones((Q, Q), dtype=torch.float32,
-                                    device=x.device))
+                                    device=xh.device))
         w = (scores[:, :, None] * Ldec * dtc.transpose(2, 3)[..., None, :]
              * tri)                                               # [B,c,H,Q,K]
         y_intra = w @ xc                                          # [B,c,H,Q,hd]
@@ -150,12 +126,82 @@ def mamba_block(p, x: torch.Tensor, cfg, state=None, conv_cache=None,
                        ).unflatten(2, (H, hd))                    # [B,c,H,hd,n]
         chunk_decay = _decays(cum[:, :, -1, :])                   # [B,c,H]
         h0 = state if state is not None else torch.zeros(
-            (B, H, hd, n), dtype=torch.float32, device=x.device)
+            (B, H, hd, n), dtype=torch.float32, device=xh.device)
         final_state, hprev = chunk_scan(h0, chunk_decay, chunk_state)
         y_inter = ((Cc[:, :, None] @ hprev.transpose(-1, -2))
                    * _decays(cum_h)[..., None])                   # [B,c,H,Q,hd]
         y = (y_intra + y_inter).transpose(2, 3).reshape(B, S, H, hd)
 
+    return y, final_state
+
+
+def _sharded_ssd(xh, dt, A, Bf, Cf, state, chunk: int):
+    """:func:`_ssd` on DTensors, one call a rank on its own batch rows and
+    heads (``local_map``): the chunk products batch over (B, c, H), and a
+    view merging a split head axis with the batch has no DTensor
+    placement.  B/C serve every head, so their gradients are pending over
+    ``model`` where the heads are split; A's over the DP axes."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed.sharding import (axes_size, axis_names,
+                                                  dp_axes, to_placements)
+
+    mesh = xh.device_mesh
+    B, _, H, _ = xh.shape
+    dp = dp_axes(mesh)
+    b = dp if B % axes_size(mesh, dp) == 0 else None
+    h = ("model" if "model" in axis_names(mesh)
+         and H % axes_size(mesh, "model") == 0 else None)
+    x_pl = to_placements((b, None, h, None), mesh)
+    dt_pl = to_placements((b, None, h), mesh)
+    a_pl = to_placements((h,), mesh)
+    bc_pl = to_placements((b, None, None), mesh)
+    s_pl = None if state is None else to_placements((b, h, None, None), mesh)
+    a_grad = [Partial() if pl.is_shard() else a
+              for pl, a in zip(bc_pl, a_pl)]
+    bc_grad = [Partial() if pl.is_shard() else c
+               for pl, c in zip(a_pl, bc_pl)]
+    out_s = to_placements((b, h, None, None), mesh)
+    fn = local_map(
+        contiguous_grads(_ssd), out_placements=(x_pl, out_s),
+        in_placements=(x_pl, dt_pl, a_pl, bc_pl, bc_pl, s_pl, None),
+        in_grad_placements=(x_pl, dt_pl, a_grad, bc_grad, bc_grad, s_pl,
+                            None),
+        device_mesh=mesh, redistribute_inputs=True)
+    return fn(xh, dt, A, Bf, Cf, state, chunk)
+
+
+def mamba_block(p, x: torch.Tensor, cfg, state=None, conv_cache=None,
+                chunk: int = 128):
+    """x: [B, S, d] -> (y [B, S, d], final_state [B,H,hd,n] float32,
+    conv caches {x, B, C}).
+
+    ``conv_cache``: dict of {x, B, C} trailing contexts (decode) or None.
+    A one-token call with a ``state`` is the recurrent decode step; any
+    other call runs the chunked scan from ``state`` (zeros when None).
+    """
+    B, S, d = x.shape
+    H = cfg.num_heads
+    hd = cfg.ssm_expand * d // H
+
+    z = _project_heads(x, p.w_z)
+    xr = _project_heads(x, p.w_x)
+    Br = x @ p.w_B
+    Cr = x @ p.w_C
+    dt_raw = x @ p.w_dt
+
+    cc = conv_cache or {}
+    xr, cx = _causal_conv(xr, p.conv_x, cc.get("x"))
+    Br, cB = _causal_conv(Br, p.conv_B, cc.get("B"))
+    Cr, cC = _causal_conv(Cr, p.conv_C, cc.get("C"))
+    new_conv = {"x": cx, "B": cB, "C": cC}
+
+    dt = softplus(dt_raw.float() + p.dt_bias)                     # [B,S,H]
+    A = -torch.exp(p.A_log)                                       # [H]
+    xh = xr.float()                                               # [B,S,H,hd]
+    ssd = _sharded_ssd if isinstance(xh, DTensor) else _ssd
+    y, final_state = ssd(xh, dt, A, Br.float(), Cr.float(), state, chunk)
     y = y + p.D[None, None, :, None] * xh.reshape(B, S, H, hd)
     y = y.to(x.dtype) * F.silu(z)
     y32 = y.float()

@@ -19,8 +19,10 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
-from repro_torch.models.layers import dense_init, dtype_of, rms_norm
+from repro_torch.models.layers import (contiguous_grads, dense_init,
+                                       dtype_of, rms_norm, softplus)
 from repro_torch.models.ssm import _decays, chunk_scan
 
 
@@ -42,10 +44,46 @@ def init_mlstm(gen: torch.Generator, cfg) -> dict:
     }
 
 
+_MLSTM_WEIGHTS = ("w_up", "w_qkv", "w_if", "norm", "w_down")
+
+
+def _sharded_mlstm(p, x, cfg, state, chunk: int):
+    """:func:`mlstm_block` on DTensors, each rank over its own batch rows
+    with whole weights (``local_map``): the block is pure DP, as the
+    reference's rules mean it (op by op, DTensor would keep ``w_up``'s
+    split over ``model`` into the 4-head views, which cannot hold it).
+    The weights' gradients are pending over the DP axes."""
+    from types import SimpleNamespace
+
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed.sharding import batch_shardings, to_placements
+
+    mesh = x.device_mesh
+    x_pl = to_placements(batch_shardings(mesh, {"x": x})["x"], mesh)
+    whole = [Replicate()] * len(x_pl)
+    w_grad = [Partial() if pl.is_shard() else Replicate() for pl in x_pl]
+    ws = [getattr(p, k) for k in _MLSTM_WEIGHTS]
+
+    def block(x, state, *ws):
+        weights = SimpleNamespace(**dict(zip(_MLSTM_WEIGHTS, ws)))
+        return mlstm_block(weights, x, cfg, state, chunk)
+
+    s_pl = None if state is None else x_pl
+    fn = local_map(contiguous_grads(block), out_placements=(x_pl, x_pl),
+                   in_placements=(x_pl, s_pl, *[whole] * len(ws)),
+                   in_grad_placements=(x_pl, s_pl, *[w_grad] * len(ws)),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(x, state, *ws)
+
+
 def mlstm_block(p, x: torch.Tensor, cfg, state=None, chunk: int = 128):
     """x: [B,S,d] -> (y [B,S,d], C [B,H,hd,hd+1] float32; column hd is the
     normalizer n).  A one-token call with a ``state`` is the recurrent
     decode step; any other call runs the chunked form from ``state``."""
+    if isinstance(x, DTensor):
+        return _sharded_mlstm(p, x, cfg, state, chunk)
     B, S, d = x.shape
     inner = cfg.ssm_expand * d
     H = cfg.num_heads
@@ -59,7 +97,9 @@ def mlstm_block(p, x: torch.Tensor, cfg, state=None, chunk: int = 128):
     v = v.reshape(B, S, H, hd).float()
     gates = (core @ p.w_if).float()
     i_g = torch.sigmoid(gates[..., :H])                          # [B,S,H]
-    logf = F.logsigmoid(gates[..., H:])                          # [B,S,H]
+    # log sigmoid as -softplus(-x), jax.nn.log_sigmoid's form: F.logsigmoid's
+    # backward has no DTensor strategy
+    logf = -softplus(-gates[..., H:])                            # [B,S,H]
     vn = torch.cat([v, v.new_ones((B, S, H, 1))], dim=-1)        # [B,S,H,hd+1]
 
     if S == 1 and state is not None:
@@ -122,23 +162,14 @@ def init_slstm(gen: torch.Generator, cfg) -> dict:
     }
 
 
-def slstm_block(p, x: torch.Tensor, cfg, state=None):
-    """A sequential loop over S (h_{t-1} feeds the gates through the
-    block-diagonal recurrent matrices).  state = (c, n, h): [B, d] float32
-    each, or None for (0, 1, 0).  Returns (y [B,S,d], (c, n, h))."""
-    B, S, d = x.shape
-    H = cfg.num_heads
+def _slstm_scan(pre, r, c, n, h):
+    """The sLSTM recurrence over S: pre [B,S,4d] and r [H,4,hd,hd] float32,
+    the state (c, n, h) [B, d].  Returns (h at every position [B,S,d],
+    c, n, h)."""
+    B, S, d4 = pre.shape
+    d = d4 // 4
+    H = r.shape[0]
     hd = d // H
-
-    pre = (x @ p.w_in).float()                                   # [B,S,4d]
-    r = p.r.float()
-    if state is None:
-        c = x.new_zeros((B, d), dtype=torch.float32)
-        n = x.new_ones((B, d), dtype=torch.float32)
-        h = x.new_zeros((B, d), dtype=torch.float32)
-    else:
-        c, n, h = state
-
     hs = []
     for t in range(S):
         rec = torch.einsum("bhd,hgde->bhge", h.reshape(B, H, hd), r
@@ -152,6 +183,48 @@ def slstm_block(p, x: torch.Tensor, cfg, state=None):
         n = f * n + i
         h = o * c / torch.clamp(n, min=1.0)
         hs.append(h)
-    y = torch.stack(hs, dim=1).to(x.dtype)                       # [B,S,d]
-    y = rms_norm(y, p.norm, cfg.norm_eps)
+    return torch.stack(hs, dim=1), c, n, h
+
+
+def _sharded_slstm_scan(pre, r, c, n, h):
+    """:func:`_slstm_scan` on DTensors, each rank over its own batch rows
+    (``local_map``; the recurrent weights replicated, their gradient
+    pending over the DP axes): op by op, DTensor would split the idle
+    model axis across the head dims, which the loop's views cannot
+    keep."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed.sharding import batch_shardings, to_placements
+
+    mesh = pre.device_mesh
+    b_pl = to_placements(batch_shardings(mesh, {"b": c})["b"], mesh)
+    pre_pl = to_placements(batch_shardings(mesh, {"b": pre})["b"], mesh)
+    r_pl = to_placements((None,) * r.ndim, mesh)
+    r_grad = [Partial() if pl.is_shard() else rp
+              for pl, rp in zip(b_pl, r_pl)]
+    fn = local_map(contiguous_grads(_slstm_scan),
+                   out_placements=(pre_pl, b_pl, b_pl, b_pl),
+                   in_placements=(pre_pl, r_pl, b_pl, b_pl, b_pl),
+                   in_grad_placements=(pre_pl, r_grad, b_pl, b_pl, b_pl),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(pre, r, c, n, h)
+
+
+def slstm_block(p, x: torch.Tensor, cfg, state=None):
+    """A sequential loop over S (h_{t-1} feeds the gates through the
+    block-diagonal recurrent matrices).  state = (c, n, h): [B, d] float32
+    each, or None for (0, 1, 0).  Returns (y [B,S,d], (c, n, h))."""
+    B, S, d = x.shape
+    pre = (x @ p.w_in).float()                                   # [B,S,4d]
+    r = p.r.float()
+    if state is None:
+        c = x.new_zeros((B, d), dtype=torch.float32)
+        n = x.new_ones((B, d), dtype=torch.float32)
+        h = x.new_zeros((B, d), dtype=torch.float32)
+    else:
+        c, n, h = state
+    scan = _sharded_slstm_scan if isinstance(x, DTensor) else _slstm_scan
+    hs, c, n, h = scan(pre, r, c, n, h)
+    y = rms_norm(hs.to(x.dtype), p.norm, cfg.norm_eps)           # [B,S,d]
     return y @ p.w_out, (c, n, h)

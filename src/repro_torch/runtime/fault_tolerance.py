@@ -7,8 +7,10 @@ The runner composes:
   * straggler mitigation — per-step deadline tracking with an EWMA of
     step time; a step breaching ``straggler_factor`` x EWMA is logged and
     counted (the hook is ``on_straggler``);
-  * elastic restart — the state is restored whole and each tensor moved
-    to the device of the live state's tensor it replaces;
+  * elastic restart — the state is restored whole and each tensor placed
+    as the live state's tensor it replaces: on its device, or, for a
+    DTensor, by ``distribute_tensor`` on its mesh and placements (the
+    checkpoint's mesh shape may differ);
   * failure injection — ``inject_failure_at`` stops the loop at a chosen
     step so tests exercise the restart path end to end.
 """
@@ -58,10 +60,19 @@ class StragglerMonitor:
 
 
 def _place(restored, live):
-    """``restored``'s tensors on the devices of ``live``'s."""
-    return unflatten(live, (
-        r.to(s.device) if isinstance(s, torch.Tensor) else r
-        for (_, r), (_, s) in zip(flatten(restored), flatten(live))))
+    """``restored``'s tensors placed as ``live``'s: a DTensor's by
+    ``distribute_tensor`` on its mesh and placements, a tensor on its
+    device."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    def one(r, s):
+        if isinstance(s, DTensor):
+            return distribute_tensor(r.to(s.device), s.device_mesh,
+                                     s.placements)
+        return r.to(s.device) if isinstance(s, torch.Tensor) else r
+
+    return unflatten(live, (one(r, s) for (_, r), (_, s)
+                            in zip(flatten(restored), flatten(live))))
 
 
 def _block_until_ready(state) -> None:

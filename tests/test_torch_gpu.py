@@ -654,3 +654,54 @@ def test_lm_train_on_the_card_matches_the_cpu(cuda):
         want, got = losses["cpu"], losses[str(cuda)]
         np.testing.assert_allclose(got[0], want[0], rtol=1e-5, err_msg=arch)
         np.testing.assert_allclose(got, want, rtol=1e-3, err_msg=arch)
+
+
+def test_one_rank_nccl_mesh_step_equals_the_plain_step(cuda):
+    """2 training steps of smoke configs (dense, MoE, xLSTM, Zamba2) on a
+    1x1 mesh of a one-rank nccl group, the state DTensors placed by the
+    rules (``launch.train.sharded_step``), against the plain step from
+    the same state and batches: losses and parameters ``torch.equal``
+    (deterministic algorithms on: the embedding's gradient otherwise
+    sums in atomic order)."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.distributed.sharding import place
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train import (make_train_step, sharded_step,
+                                          state_shardings)
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init, constant
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_local_mesh(device=cuda)
+        for arch in ("tinyllama-1.1b", "mixtral-8x22b", "xlstm-350m",
+                     "zamba2-7b"):
+            cfg = smoke_config(get_config(arch))
+            model = init_params(cfg, 0, device=cuda)
+            params = {k: p.detach() for k, p in model.named_parameters()}
+            pipe = make_pipeline(cfg, seq_len=32, global_batch=4)
+            batches = [{k: torch.as_tensor(v, device=cuda)
+                        for k, v in pipe.batch_at(i).items()}
+                       for i in range(2)]
+            state = (params, adamw_init(params))
+            specs = state_shardings(mesh, state)
+            placed = place(state, specs, mesh)
+            step = make_train_step(cfg, model, constant(1e-3))
+            dstep = sharded_step(step, mesh, specs)
+            for batch in batches:
+                state, metrics = step(state, batch)
+                placed, dmetrics = dstep(placed, batch)
+                assert torch.equal(metrics["loss"], dmetrics["loss"]), arch
+            for k, p in state[0].items():
+                assert torch.equal(p, placed[0][k].full_tensor()), (arch, k)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()

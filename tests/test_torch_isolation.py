@@ -4,7 +4,10 @@ example modules, incremental plan maintenance, serving, the whole of
 ``obs``, the LM configs, models and serving driver included, and the LM
 training substrate: ``data``, ``checkpoint``, ``runtime``,
 ``launch.train``, ``models.ssm``, ``models.xlstm``,
-``examples.lm_train``), the port's entry points default to the card
+``examples.lm_train``, and the device mesh: ``launch.mesh``,
+``launch.dryrun``, ``distributed.sharding``, ``distributed.mesh_compat``),
+importing every module starts no process group and sets no environment
+variable, the port's entry points default to the card
 (and raise without one instead of running on the CPU: ``evaluate``,
 ``make_dataset``, ``train_model``, ``make_presampled_agg``,
 ``GNNServer``, the LM's ``init_params`` and ``serve``, also for the
@@ -25,11 +28,13 @@ PORT = REPO / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 _PROBE = r"""
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys
 import numpy as np
 import torch
+import torch.distributed as dist
 import repro_torch
 
+environ = dict(os.environ)
 names = sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                      "repro_torch."))
 for name in names:
@@ -37,6 +42,8 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
+assert not dist.is_initialized()
+assert dict(os.environ) == environ, set(os.environ) ^ set(environ)
 for name in ("repro_torch.optim.adamw", "repro_torch.configs.gnn_paper",
              "repro_torch.examples.quickstart",
              "repro_torch.examples.gnn_inference", "repro_torch.gnn.train",
@@ -59,7 +66,9 @@ for name in ("repro_torch.optim.adamw", "repro_torch.configs.gnn_paper",
              "repro_torch.runtime.fault_tolerance",
              "repro_torch.launch.train", "repro_torch.examples.lm_train",
              "repro_torch.exec.__main__", "repro_torch.tuning.autotune",
-             "repro_torch.tuning.calibration"):
+             "repro_torch.tuning.calibration", "repro_torch.launch.mesh",
+             "repro_torch.launch.dryrun", "repro_torch.distributed.sharding",
+             "repro_torch.distributed.mesh_compat"):
     assert name in names, name
 print("MODULES", len(names))
 
@@ -85,6 +94,7 @@ else:
     from repro_torch.launch.serve import serve
     from repro_torch.models import init_params
     from repro_torch.launch.train import main as train_main
+    from repro_torch.launch.dryrun import main as dryrun_main
     lm_cfg = smoke_config(get_config("qwen2-7b"))
     lm = init_params(lm_cfg, device="cpu")
     zamba = smoke_config(get_config("zamba2-7b"))
@@ -106,6 +116,8 @@ else:
             ("PATTERN_SERVE", lambda: serve(xl, xl_lm,
                                             np.ones((1, 4), np.int32), 2)),
             ("TRAIN_MAIN", lambda: train_main(["--smoke", "--steps", "1"])),
+            ("DRYRUN", lambda: dryrun_main(["--arch", "tinyllama-1.1b",
+                                            "--shape", "decode_32k"])),
             ("EXEC_CLI", lambda: exec_cli(["--smoke"])),
             ("AUTOTUNE_CLI", lambda: autotune_cli(["--smoke"])),
             ("CALIBRATION_CLI", lambda: calibration_cli(["--smoke"]))):
@@ -114,6 +126,7 @@ else:
         except RuntimeError as exc:
             assert "cuda" in str(exc), exc
             print(name + "_RAISED_WITHOUT_CARD")
+    assert not dist.is_initialized()
 """
 
 
@@ -132,7 +145,7 @@ def test_port_loads_no_jax_and_defaults_to_the_card():
     if "EVALUATED_ON_CUDA" not in out.stdout:
         for what in ("", "DATASET_", "TRAIN_", "PRESAMPLED_", "SERVER_",
                      "LM_INIT_", "LM_SERVE_", "PATTERN_INIT_",
-                     "PATTERN_SERVE_", "TRAIN_MAIN_", "EXEC_CLI_",
+                     "PATTERN_SERVE_", "TRAIN_MAIN_", "DRYRUN_", "EXEC_CLI_",
                      "AUTOTUNE_CLI_", "CALIBRATION_CLI_"):
             assert what + "RAISED_WITHOUT_CARD" in out.stdout, what
 

@@ -281,10 +281,12 @@ def test_train_launcher_resume_equals_uninterrupted(tmp_path):
 
 
 def test_train_launcher_refuses_the_mesh_and_defaults_to_the_card(tmp_path):
+    """The production meshes need 256 and 512 ranks: on one process the
+    mesh's own check raises ``ValueError`` naming them."""
     from repro_torch.launch.train import main
 
-    for flag in ("--production-mesh", "--multi-pod"):
-        with pytest.raises(NotImplementedError, match="mesh"):
+    for flag, ranks in (("--production-mesh", "256"), ("--multi-pod", "512")):
+        with pytest.raises(ValueError, match=ranks):
             main(["--smoke", "--steps", "1", "--device", "cpu", flag])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
