@@ -5,6 +5,9 @@ Run from the root of a checkout on a machine with one CUDA card::
 
     python3 chip_smoke.py
 
+On a machine with several cards the same command also spreads the spmd
+server over the cards (the ``serving_spmd_cards`` line of phase 4).
+
 Phases, each of which raises (exit code != 0, no result line) on failure:
 
 1. Device: the card's name and power limit, as ``nvidia-smi`` gives them.
@@ -116,6 +119,22 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    dense) with every result equal to the synchronous one, and a
    ``window`` edge update equal to loop mode's after the same update; a
    degree-sorted plan refused (``serving_spmd*`` lines).
+   Then spmd serving over several device slots, its launch counts
+   likewise: the 4 shards over ``devices=["cuda:0"] * 2`` and ``* 4``
+   (a ``serving_spmd_slots`` line each: the shards split in shard order,
+   each slot's stack served by its own pass), f32 and int8, each server on
+   the loop servers' disk caches (4 disk hits), resident and dense F = 64
+   results ``torch.equal`` to a loop server's and the one-slot server's;
+   the launches of one pass (``block_ell_spmm`` once a non-empty global
+   bucket a slot, at most slots x 3; int8 one ``dequantize`` a shard); a
+   pass's device and host ms beside the one-slot pass's, and its dispatch
+   under ``set_sync_debug_mode("error")``.  With more than one card, the
+   same over one slot a card, plus a ``ServingRuntime`` burst at the
+   synchronous baseline's rps whose results equal ``flush()``'s, its
+   achieved rate and rejections beside the baseline's rate (gated, as the
+   one-card runtime line is, on equal results and no failure, not on the
+   rate) (``serving_spmd_cards``); on one card that line says
+   ``"across_cards": "not run"``.
    Then the command lines (``cli_smoke`` lines), each in a process of its
    own on the card as ``python -m`` runs it, with the launches it made:
    ``repro_torch.exec --smoke --json`` (the fused layers against the
@@ -1221,12 +1240,16 @@ def _uncounted(P, compared: dict, fn):
 def _torch_twins_of(P, server, x):
     """``server``'s shard plans run one by one on ``x`` (None: the resident
     operands) through their ``torch`` twins (the blocked kernel's plain
-    computation), concatenated: what ``aggregate`` must equal."""
+    computation), concatenated on the server's device: what ``aggregate``
+    must equal.  Each shard runs on its own device, as the server runs it
+    (on several cards, round robin)."""
     outs = []
     for s, shard in enumerate(server.shards):
         plan = server.plans[s] if x is None else server._float_plans[s]
-        op = server._resident[s] if x is None else shard.gather(x)
-        outs.append(_torch_twin(P, plan).run(op, assume_tuned=x is None))
+        op = server._resident[s] if x is None \
+            else shard.gather(x).to(server._devices[s])
+        out = _torch_twin(P, plan).run(op, assume_tuned=x is None)
+        outs.append(out.to(server.device))
     return P.torch.cat(outs, dim=0)
 
 
@@ -1585,6 +1608,8 @@ def serving_path(P, ds, modules, full_acc, cache_root: Path) -> dict:
     touched = report["patched"] + report["retuned"]
 
     def cold_outputs():
+        # a cold tune runs where the shard's CSR lives, a kept plan on its
+        # shard's device (on several cards, round robin)
         outs = []
         for i, shard in enumerate(server.shards):
             op = shard.gather(x)
@@ -1594,8 +1619,10 @@ def serving_path(P, ds, modules, full_acc, cache_root: Path) -> dict:
                                       shard_meta=plan.shard_meta)
                 if cold.fingerprint != plan.fingerprint:
                     return None
-                plan = cold
-            outs.append(plan.run(op))
+                out = cold.run(op)
+            else:
+                out = plan.run(op.to(server._devices[i]))
+            outs.append(out.to(server.device))
         return torch.cat(outs, dim=0)
 
     want = comparing(cold_outputs)
@@ -1636,15 +1663,22 @@ QUEUE_AHEAD_CYCLES = 200_000_000
 
 
 def queued_device_ms(torch, fn, batch=TIMING_BATCH,
-                     reps=TIMING_REPS) -> float:
+                     reps=TIMING_REPS, cards=()) -> float:
     """Device time of one call, in ms, for calls whose host time exceeds
     their device time (a serving pass): the card spins first, the host
     queues ``batch`` calls behind the spin between one pair of CUDA events,
-    so the events time the device work alone; the median of ``reps``."""
+    so the events time the device work alone; the median of ``reps``.
+    ``cards``: the other cards a call runs on, each spun too (the events
+    lie on the current card, where a call's output is gathered)."""
     fn()
     times = []
     for _ in range(reps):
+        for card in cards:
+            torch.cuda.synchronize(card)
         torch.cuda.synchronize()
+        for card in cards:
+            with torch.cuda.device(card):
+                torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
         torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -1695,7 +1729,7 @@ def serving_spmd_path(P, ds, cache_root: Path) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         spmd = P.GNNServer(adj, x, num_shards=SERVING_SHARDS, mode="spmd",
-                           quant=quant, cache=cache,
+                           quant=quant, cache=cache, devices=["cuda:0"],
                            max_buckets=SPMD_MAX_BUCKETS)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
@@ -1703,7 +1737,7 @@ def serving_spmd_path(P, ds, cache_root: Path) -> dict:
         loop = comparing(lambda: P.GNNServer(
             adj, x, num_shards=SERVING_SHARDS, quant=quant,
             cache=loop_cache))
-        bundle = spmd._bundle
+        bundle = spmd._bundles[0]
         check(cache.stats.disk_hits == loop_cache.stats.disk_hits
               == SERVING_SHARDS and cache.stats.misses == 0
               and loop_cache.stats.misses == 0, f"same plans {name}")
@@ -1819,6 +1853,170 @@ def serving_spmd_path(P, ds, cache_root: Path) -> dict:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  "spmd serving path")
+    return launches
+
+
+#: device slots of the one-card ``serving_spmd_slots`` lines: the 4 shards
+#: split over 2 and over 4 stacks on ``cuda:0``
+SPMD_SLOTS = (2, 4)
+
+
+def serving_spmd_slots_path(P, ds, cache_root: Path) -> dict:
+    """``GNNServer(mode="spmd")`` over several device slots on reddit's
+    ``gcn_adj``, 4 shards, f32 and int8, every server on a fresh disk
+    ``PlanCache`` over the loop servers' directory under ``cache_root`` (4
+    disk hits, no tune): ``devices=["cuda:0"] * k`` for k in
+    :data:`SPMD_SLOTS` (a ``serving_spmd_slots`` line each) and, with more
+    than one card, one slot a card (``serving_spmd_cards``).  Each is held
+    bit for bit against a loop server and the one-slot server on the same
+    plans (resident and a dense F = 64 operand), its output on ``cuda:0``;
+    the launches of one pass (``block_ell_spmm`` once a non-empty global
+    bucket a slot, at most slots x :data:`SPMD_MAX_BUCKETS`; int8 one
+    ``dequantize`` a shard); a pass's device ms (every card it uses spun
+    first) and host ms beside the one-slot pass's; ``run_batch``'s dispatch
+    under the sync debug mode "error".  Across cards, f32 also a
+    ``ServingRuntime`` burst at the synchronous baseline's rps, its results
+    equal to ``flush()``'s: the copies between cards are ordered on both
+    cards' streams.  Returns the launches of the run (counts set to 0 at
+    its start), less those made only to compare or time."""
+    torch = P.torch
+    adj, x = ds.gcn_adj, ds.features
+    n = adj.num_rows
+    gen = torch.Generator(device=adj.device).manual_seed(2)
+    dense = torch.randn((n, SERVING_DENSE_F), generator=gen,
+                        device=adj.device)
+    home = torch.device("cuda", 0)
+    cards = torch.cuda.device_count()
+    layouts = {f"slots_{k}": ["cuda:0"] * k for k in SPMD_SLOTS}
+    if cards > 1:
+        layouts["cards"] = [f"cuda:{i}"
+                            for i in range(min(cards, SERVING_SHARDS))]
+    failures, compared = [], {}
+    comparing = functools.partial(_uncounted, P, compared)
+
+    def check(ok, what):
+        if not ok:
+            failures.append(what)
+
+    def timed(srv, devices):
+        others = sorted({torch.device(d) for d in devices} - {home},
+                        key=str)
+        return {label: {"device_ms": queued_device_ms(
+                            torch, lambda: srv.run_batch([op]),
+                            cards=others),
+                        "host_ms": host_ms(
+                            torch, lambda: srv.run_batch([op]))}
+                for label, op in (("resident", None), ("dense_f64", dense))}
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    P.ops.reset_launch_counts()                   # the path starts here
+    lines = {name: {} for name in layouts}
+    for plans, quant in (("f32", None), ("int8", 8)):
+        cache_dir = str(cache_root / plans)
+
+        def server(devices, mode="spmd"):
+            cache = P.PlanCache(cache_dir)
+            srv = P.GNNServer(adj, x, num_shards=SERVING_SHARDS, mode=mode,
+                              quant=quant, cache=cache, devices=devices,
+                              max_buckets=SPMD_MAX_BUCKETS)
+            check(cache.stats.disk_hits == SERVING_SHARDS
+                  and cache.stats.misses == 0,
+                  f"same plans {plans} {mode} {devices}")
+            return srv
+
+        loop = comparing(lambda: server(["cuda:0"], "loop"))
+        one = comparing(lambda: server(["cuda:0"]))
+        operands = (("resident", None), ("dense_f64", dense))
+        want = {label: comparing(lambda: loop.aggregate(op))
+                for label, op in operands}
+        want_one = {label: comparing(lambda: one.aggregate(op))
+                    for label, op in operands}
+        one_times = comparing(lambda: timed(one, ["cuda:0"]))
+        for name, devices in layouts.items():
+            for d in {torch.device(d) for d in devices}:
+                torch.cuda.synchronize(d)
+            t0 = time.perf_counter()
+            srv = server(devices)
+            for d in {torch.device(d) for d in devices}:
+                torch.cuda.synchronize(d)
+            build_s = time.perf_counter() - t0
+            slots = srv._bundles
+            check(len(slots) == len(devices)
+                  and all(b._quant == (quant is not None) for b in slots),
+                  f"slots {name} {plans}")
+            equal, per_pass = {}, {}
+            for label, op in operands:
+                got = srv.aggregate(op)
+                equal[label] = {
+                    "loop": bool(torch.equal(got, want[label])),
+                    "one_slot": bool(torch.equal(got, want_one[label]))}
+                check(got.device == home and all(equal[label].values())
+                      and bool(torch.isfinite(got).all()),
+                      f"{name} vs loop and one slot {plans} {label}")
+                per_pass[label] = _pass_launches(P, srv, op)
+                block = per_pass[label].get("block_ell_spmm", 0)
+                deq = per_pass[label].get("dequantize", 0)
+                check(block == sum(len(b.buckets) for b in slots)
+                      and 1 <= block <= len(slots) * SPMD_MAX_BUCKETS
+                      and all(ids for b in slots for _, ids in b.buckets)
+                      and deq == (SERVING_SHARDS if quant and op is None
+                                  else 0),
+                      f"launches a pass {name} {plans} {label}")
+            times = comparing(lambda: timed(srv, devices))
+            dispatch = comparing(
+                lambda: _dispatch_vs_completion(P, srv, [None]))
+            line = {
+                "build_s": build_s,
+                "groups": [list(g) for g in srv._mesh.groups],
+                "buckets": [[[w, len(ids)] for w, ids in b.buckets]
+                            for b in slots],
+                "operand_rows": [b.gcap * b.num_shards for b in slots],
+                "resident_uint8": slots[0]._quant,
+                "equal": equal, "launches_a_pass": per_pass,
+                "pass_ms": times, "one_slot_pass_ms": one_times,
+                "dispatch_vs_completion": dispatch}
+            if name == "cards" and plans == "f32":
+                base = P.sync_baseline(srv, iters=16, warmup=2)
+                pool = [torch.randn((n, SERVING_DENSE_F), generator=gen,
+                                    device=home)
+                        for _ in range(SERVING_POOL)]
+                expected = {None: srv.aggregate()}
+                expected.update({id(op): srv.aggregate(op) for op in pool})
+                burst = _runtime_line(P, srv, base["rps"], pool, expected)
+                line["runtime"] = {
+                    "sync_baseline": base, "rate_x_baseline": 1.0,
+                    "achieved_x_baseline": burst["achieved_rps"]
+                    / base["rps"], **burst}
+                check(burst["results_unequal_to_sync"] == 0
+                      and burst["completed"] >= 1 and burst["failed"] == 0,
+                      "runtime across cards")
+                del pool, expected
+            lines[name][plans] = line
+            del srv, slots
+        del loop, one
+
+    for name, line in lines.items():
+        log({"phase": "serving_spmd_cards" if name == "cards"
+             else "serving_spmd_slots",
+             "devices": layouts[name], "cards": cards, **line})
+    if cards == 1:
+        log({"phase": "serving_spmd_cards", "cards": 1,
+             "across_cards": "not run"})
+    launches = {k: v - compared.get(k, 0)         # ... and ends here
+                for k, v in P.ops.launch_counts().items()}
+    log({"phase": "serving_spmd_slots_launches", "launches": launches,
+         "comparison_and_timing_launches": compared,
+         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "wall_s": time.perf_counter() - t_phase})
+    if failures:
+        raise AssertionError(f"serving_spmd_slots: {failures} failed (the "
+                             "serving_spmd_slots/cards lines above say "
+                             "which check)")
+    for name in ("block_ell_spmm", "dequantize"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 "spmd slots path")
     return launches
 
 
@@ -3361,6 +3559,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as cache_root:
         serving = serving_path(P, ds, modules, full_acc, Path(cache_root))
         spmd = serving_spmd_path(P, ds, Path(cache_root))
+        spmd_slots = serving_spmd_slots_path(P, ds, Path(cache_root))
     clis = cli_smokes(P)
     lm = lm_serve_path(P)
     lm_pattern = lm_pattern_serve_path(P)
@@ -3368,7 +3567,8 @@ def main() -> None:
     lm_mesh_path()
     lm_dryrun_path()
     launches = {k: n + presampled[k] + tuned[k] + incremental[k] + serving[k]
-                + spmd[k] + clis[k] + lm[k] + lm_pattern[k] + lm_train[k]
+                + spmd[k] + spmd_slots[k] + clis[k] + lm[k] + lm_pattern[k]
+                + lm_train[k]
                 for k, n in launches.items()}
 
     errs["fused_layer_int8"] = []

@@ -221,7 +221,13 @@ def partition_width_buckets(widths, max_buckets: int = 3) -> tuple:
         j = cut[i][g]
         bounds.append(uniq[j])
         i, g = j + 1, g - 1
+    return buckets_within(widths, bounds)
 
+
+def buckets_within(widths, bounds) -> tuple:
+    """The blocks of ``widths`` grouped by ascending width ``bounds``: one
+    ``(bucket_width, block_ids)`` per bound whose interval ``(previous
+    bound, bound]`` holds a block, ``bucket_width`` the widest of them."""
     buckets = []
     lo = -1
     for hi in bounds:

@@ -21,12 +21,14 @@ Two execution modes, the reference package's:
     layout, and the double buffering is then plain sequencing.
   * ``mode="spmd"`` — one pass over every shard at once.  The reference
     runs one ``shard_map`` program over a ``("shards",)`` mesh, one device
-    per shard.  Here the shards are stacked on one device
-    (``repro_torch.distributed.serving_mesh``): their BlockELL blocks form
-    one BlockELL and their operands one ``[num_shards * gcap, F]`` matrix,
-    so a pass is one ``block_ell_spmm`` launch per *global* width bucket
-    (at most ``max_buckets``), where loop mode makes one per shard per
-    bucket (:class:`_SpmdBundle`).
+    per shard.  Here the shards split in shard order over device slots
+    (``repro_torch.distributed.serving_mesh``), and each slot's shards are
+    stacked on its device: their BlockELL blocks form one BlockELL and
+    their operands one ``[shards * gcap, F]`` matrix, so a slot's pass is
+    one ``block_ell_spmm`` launch per non-empty *global* width bucket (at
+    most ``max_buckets``), where loop mode makes one per shard per bucket
+    (:class:`_SpmdBundle`).  The slots run in order and their outputs are
+    gathered, device to device, on the first slot's device.
 
 Micro-batching: ``submit()`` enqueues requests, ``flush()`` executes the
 whole queue in as few sharded passes as possible — SpMM is linear in the
@@ -35,9 +37,10 @@ column-concatenated pass, and requests for the graph's own feature matrix
 (``x=None``) dedupe into a single pass over the cached (possibly
 quantized) per-shard operands.  ``run_batch()`` is the same execution
 path without the queue: it only enqueues work on the current CUDA stream
-and never waits for the card, so the continuous-batching runtime
-(``repro_torch.serving.runtime``) can assemble the next batch while this
-one runs.
+of each card it uses (a copy between cards is ordered on both cards'
+current streams) and never waits for a card, so the continuous-batching
+runtime (``repro_torch.serving.runtime``) can assemble the next batch
+while this one runs.
 """
 from __future__ import annotations
 
@@ -48,7 +51,8 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.core.graph import CSR, BlockELL, partition_width_buckets
+from repro_torch.core.graph import (CSR, BlockELL, buckets_within,
+                                    partition_width_buckets)
 from repro_torch.distributed.serving import serving_mesh, shard_devices
 from repro_torch.serving.partition import (concat_shard_outputs, halo_stats,
                                            partition_csr)
@@ -113,29 +117,62 @@ def _stack_block_ells(bells, gcap: int) -> BlockELL:
                     row_w.numel(), len(bells) * gcap)
 
 
+def _spmd_slots(shards, plans, features, mesh, max_buckets: int = 3
+                ) -> list:
+    """One :class:`_SpmdBundle` per slot of ``mesh``, after the checks and
+    decisions that hold across every shard, as in the reference package's
+    ``_SpmdBundle``: no degree-sorted plan, one ``block_rows``, the width
+    buckets' bounds from one ``partition_width_buckets`` call over every
+    shard's block widths, and a quantized resident operand only when every
+    shard's plan is quantized (one dtype across shards) and verifiably
+    encodes the shard's gathered features (the one-time ``features_fp``
+    check loop mode makes)."""
+    for p in plans:
+        if p.perm is not None:
+            # the stacked rows assume block b's rows land at [b*br,
+            # (b+1)*br) in natural order; a degree-sorted plan's land at
+            # perm[those] and would need a per-shard inverse gather
+            raise ValueError(
+                "spmd mode does not support degree-sorted (row-"
+                "permuted) plans; use mode='loop' or layout='natural'")
+    brs = {p.bell.block_rows for p in plans}
+    if len(brs) != 1:
+        raise ValueError(f"spmd mode needs one block_rows, got {brs}")
+    bounds = tuple(bw for bw, _ in partition_width_buckets(
+        [w for p in plans for w in p.bell.widths], max_buckets))
+    from repro_torch.tuning.plan_cache import features_fingerprint
+
+    qs = [p.quantized for p in plans]
+    quant = all(
+        q is not None and q.q.dtype == qs[0].q.dtype
+        and features_fingerprint(s.gather(features)) == p.features_fp
+        for s, p, q in zip(shards, plans, qs))
+    return [_SpmdBundle(shards[lo:hi], plans[lo:hi], features, dev, bounds,
+                        quant)
+            for dev, (lo, hi) in zip(mesh.devices, mesh.groups)]
+
+
 class _SpmdBundle:
-    """Every shard stacked on one device, served by one blocked pass.
+    """One slot's shards stacked on its device, served by one blocked pass.
 
-    The semantics are the reference package's ``_SpmdBundle``: *global*
-    width buckets from one ``partition_width_buckets`` call over every
-    shard's block widths, one ``block_rows`` across shards, no degree-sorted
-    plan, and a quantized resident operand only when every shard's plan is
-    quantized and verifiably encodes the shard's gathered features.
+    Built by :func:`_spmd_slots`, which makes the choices that hold across
+    slots: the global width buckets' ``bounds`` and ``quant``, whether the
+    resident operand is the quantized stack.  The layout is this port's:
 
-    The layout is this port's:
-
-      * the shards' blocks, in shard order, form one :class:`BlockELL`, so
-        shard ``s``'s local row ``r`` is stacked row ``blk_off[s] *
+      * the slot's blocks, in shard order, form one :class:`BlockELL`, so
+        its shard ``s``'s local row ``r`` is stacked row ``blk_off[s] *
         block_rows + r``;
       * shard ``s``'s operand occupies rows ``[s * gcap, (s + 1) * gcap)``
-        of one ``[num_shards * gcap, F]`` stack (``gcap``: the widest
-        shard's column count), gathered by one ``index_select`` through a
-        flat gather index, so its live slots' columns are offset by ``s *
+        of one ``[shards * gcap, F]`` stack (``gcap``: the slot's widest
+        shard's column count), gathered on the features' device by one
+        ``index_select`` through a flat gather index and copied to the
+        slot's device, so its live slots' columns are offset by ``s *
         gcap``; dead slots keep ``(col 0, val 0.0)``, so the zero sentinel
         still decodes to the plans' ``live_w``;
-      * one ``ops.block_ell_spmm`` call over the stack and the global
-        buckets, then one ``index_select`` keeps the real rows in shard
-        order (the reference scatters into a dump row instead).
+      * one ``ops.block_ell_spmm`` call over the stack, one launch for each
+        global bucket ``(previous bound, bound]`` that holds a block of the
+        slot, then one ``index_select`` keeps the real rows in shard order
+        (the reference scatters into a dump row instead).
 
     Each shard of a quantized stack has its own ``(scale, x_min)``, so no
     one uint8 launch serves the stack: a pass dequantizes each shard's
@@ -144,23 +181,11 @@ class _SpmdBundle:
     The uint8 stack is what stays resident.
     """
 
-    def __init__(self, shards, plans, features, mesh, max_buckets: int = 3):
-        for p in plans:
-            if p.perm is not None:
-                # the stacked rows assume block b's rows land at [b*br,
-                # (b+1)*br) in natural order; a degree-sorted plan's land at
-                # perm[those] and would need a per-shard inverse gather
-                raise ValueError(
-                    "spmd mode does not support degree-sorted (row-"
-                    "permuted) plans; use mode='loop' or layout='natural'")
-        brs = {p.bell.block_rows for p in plans}
-        if len(brs) != 1:
-            raise ValueError(f"spmd mode needs one block_rows, got {brs}")
-        br = brs.pop()
-        dev = mesh.device
-        plans = [_plan_to(p, dev) for p in plans]
+    def __init__(self, shards, plans, features, device, bounds, quant):
+        br = plans[0].bell.block_rows
+        self.device = device
+        plans = [_plan_to(p, device) for p in plans]
         num = len(shards)
-        self.mesh = mesh
         self.num_shards = num
         self.gcap = gcap = max(s.csr.num_cols for s in shards)
         if num * gcap >= 2 ** 31:
@@ -170,7 +195,8 @@ class _SpmdBundle:
         gidx = np.zeros(num * gcap, np.int64)
         for s, sh in enumerate(shards):
             gidx[s * gcap:s * gcap + len(sh.gather_index)] = sh.gather_index
-        self._gidx = torch.from_numpy(gidx).to(dev)
+        # on the features' device, where dense requests arrive too
+        self._gidx = torch.from_numpy(gidx).to(features.device)
 
         self.bell = _stack_block_ells([p.bell for p in plans], gcap)
         blk_off = np.cumsum([0] + [p.bell.num_blocks for p in plans])
@@ -178,21 +204,14 @@ class _SpmdBundle:
                                for s, sh in enumerate(shards)])
         # None when the stacked rows are the real rows already
         self._keep = None if keep.size == self.bell.num_rows else \
-            torch.from_numpy(keep).to(dev)
-        self.buckets = partition_width_buckets(self.bell.widths, max_buckets)
+            torch.from_numpy(keep).to(device)
+        self.buckets = buckets_within(self.bell.widths, bounds)
 
-        # Resident operand for x=None requests: the quantized stack when
-        # every shard's plan is quantized (one dtype across shards) and
-        # verifiably encodes the shard's gathered features (the one-time
-        # features_fp check loop mode makes), else the float gather.
-        from repro_torch.tuning.plan_cache import features_fingerprint
-
-        qs = [p.quantized for p in plans]
-        self._quant = all(
-            q is not None and q.q.dtype == qs[0].q.dtype
-            and features_fingerprint(s.gather(features)) == p.features_fp
-            for s, p, q in zip(shards, plans, qs))
-        if self._quant:
+        # Resident operand for x=None requests: the quantized stack, or the
+        # float gather copied to the slot's device.
+        self._quant = quant
+        if quant:
+            qs = [p.quantized for p in plans]
             self._resident = qs[0].q.new_zeros((num * gcap,
                                                 qs[0].q.shape[1]))
             for s, q in enumerate(qs):
@@ -200,22 +219,23 @@ class _SpmdBundle:
             self._eq2 = [(q.scale, q.x_min) for q in qs]
             self._bits = qs[0].bits
         else:
-            self._resident = features.index_select(0, self._gidx)
+            self._resident = features.index_select(0, self._gidx).to(device)
         from repro_torch.kernels import ops
 
         ops.prepare_block_ell(self.bell, self.buckets)
 
     def run(self, x=None) -> torch.Tensor:
-        """One pass over every shard: ``x=None`` serves the resident
+        """One pass over the slot's shards: ``x=None`` serves the resident
         (possibly uint8) stack; a dense ``[num_nodes, F]`` matrix is
-        gathered into a float stack.  Returns ``[num_nodes, F]``."""
+        gathered where it lies and only the stack copied to the slot's
+        device.  Returns the slot's rows ``[rows, F]`` on its device."""
         from repro_torch.kernels import ops
 
         if x is not None:
-            stack = x.index_select(0, self._gidx)
+            stack = x.index_select(0, self._gidx).to(self.device)
         elif self._quant:
             stack = torch.empty(self._resident.shape, dtype=torch.float32,
-                                device=self._resident.device)
+                                device=self.device)
             g = self.gcap
             for s, (scale, x_min) in enumerate(self._eq2):
                 ops.dequantize(self._resident[s * g:(s + 1) * g], scale,
@@ -237,9 +257,9 @@ class GNNServer:
         plans, and served by ``submit(x=None)`` requests.
       num_shards: row shards (default: one per device of the server's
         device type — 1 on a one-card machine).
-      mode: ``"loop"`` (per-shard launches) or ``"spmd"`` (every shard
-        stacked on one device, one launch per global width bucket; a
-        degree-sorted plan raises ``ValueError``).
+      mode: ``"loop"`` (per-shard launches) or ``"spmd"`` (the shards
+        stacked on each device slot, one launch per non-empty global width
+        bucket a slot; a degree-sorted plan raises ``ValueError``).
       quant: pre-quantize each shard's operand to this bit width (8/16);
         serving then moves uint8 features and fuses Eq. 2 into the gather.
       cache: plan cache (default process-wide).  Point it at a disk dir
@@ -250,11 +270,15 @@ class GNNServer:
         every CUDA device; a missing card raises).  ``csr`` and
         ``features`` are copied to the first one, where the shards are
         partitioned and tuned; pass ``devices=["cpu"]`` to serve on the
-        CPU through the kernels' plain versions.  ``"spmd"`` mode stacks
-        every shard on one device (default: the current CUDA device); a
-        list of several distinct devices raises ``ValueError``.
+        CPU through the kernels' plain versions.  In ``"spmd"`` mode each
+        entry is one slot (repeats allowed: ``["cpu"] * 4`` is four
+        stacked passes on the CPU), the shards split over the slots in
+        shard order (default: one slot on the first device; the shards
+        spread over cards only where the list names several);
+        more slots than shards, or a slot neither ``cpu`` nor ``cuda``,
+        raises ``ValueError``.
       max_buckets: the most width buckets, so kernel launches, of an
-        ``"spmd"`` pass.
+        ``"spmd"`` slot's pass.
 
     Serving API: ``submit(x=None) -> ticket``, ``flush() -> [results]``,
     or ``aggregate(x=None)`` for a one-shot request.  ``x=None`` requests
@@ -282,9 +306,8 @@ class GNNServer:
         self.mode = mode
         self.num_shards = int(num_shards)
         self._mesh = None
-        if mode == "spmd":   # before tuning: several devices raise here
-            self._mesh = serving_mesh(self.num_shards, devices
-                                      if devices is not None else self.device)
+        if mode == "spmd":   # before tuning: a bad slot raises here
+            self._mesh = serving_mesh(self.num_shards, devices)
             self.device = self._mesh.device
         self.cache = cache if cache is not None else default_cache()
         self.features = torch.as_tensor(features, dtype=torch.float32,
@@ -317,17 +340,21 @@ class GNNServer:
         directly; one tuned on *other* features (a stale disk entry) has
         its quantized operand dropped from this server's copy and serves
         the float path.  Then every plan is warmed (:func:`_warm`), so a
-        request copies nothing from the host.  In ``"spmd"`` mode the
-        stacked bundle (:class:`_SpmdBundle`) makes the same check and is
-        warmed when built.
+        request copies nothing from the host.  In ``"spmd"`` mode
+        :func:`_spmd_slots` makes the same check over every shard, and each
+        slot's stack is warmed when built.
         """
         from repro_torch.tuning.plan_cache import features_fingerprint
 
-        self._bundle = None
+        self._bundles = None
         if self._mesh is not None:
-            self._bundle = _SpmdBundle(self.shards, self.plans, self.features,
-                                       self._mesh, self._max_buckets)
-            self._devices = [self.device] * self.num_shards
+            self._bundles = _spmd_slots(self.shards, self.plans,
+                                        self.features, self._mesh,
+                                        self._max_buckets)
+            # each shard's slot device (the runtime makes a stream a card)
+            self._devices = [d for d, (lo, hi) in
+                             zip(self._mesh.devices, self._mesh.groups)
+                             for _ in range(lo, hi)]
             for s in self.shards:
                 s.index_on(self.device)
             return
@@ -364,7 +391,7 @@ class GNNServer:
         (``repro_torch.serving.plans.apply_edge_updates_sharded``): those
         shards' plans are patched (or, when the halo changes, re-tuned),
         every other shard's plan is untouched, and the execution state
-        (resident operands, or the spmd bundle) is rebuilt from the
+        (resident operands, or the spmd slots) is rebuilt from the
         swapped-in shards/plans.  Pending submitted
         tickets are served by the *patched* graph at the next ``flush()``.
 
@@ -458,9 +485,12 @@ class GNNServer:
     def run_batch(self, batch: Sequence) -> list:
         """Execute one micro-batch of operands *without waiting for the
         card*: returns one ``[num_rows, F_i]`` tensor per entry, in order,
-        whose work is enqueued on the current CUDA stream (callers that
-        need the values synchronize that stream, or record an event on it
-        and wait for the event).
+        on ``self.device``, whose work is enqueued on the current CUDA
+        stream of each card the server uses; an spmd slot's output reaches
+        ``self.device`` by a copy ordered after the slot's pass, so the
+        values are ready once ``self.device``'s current stream is (callers
+        synchronize that stream, or record an event on it and wait for
+        the event).
 
         ``flush()`` is a thin wrapper over it, and the continuous-batching
         runtime calls it directly so the next batch can be assembled while
@@ -525,8 +555,10 @@ class GNNServer:
 
     def _run(self, x):
         self.stats["sharded_passes"] += 1
-        if self._bundle is not None:
-            return self._bundle.run(x)
+        if self._bundles is not None:
+            outs = [b.run(x) for b in self._bundles]
+            return outs[0] if len(outs) == 1 else \
+                concat_shard_outputs(outs, self.device)
         return self._run_loop(x)
 
     def _operand(self, s: int, x):

@@ -533,6 +533,42 @@ def test_spmd_serving_on_the_card_equals_the_cpu(cuda):
                 got, loop.aggregate(None if op is None else op.to(cuda)))
 
 
+@pytest.mark.skipif(torch.cuda.device_count() < 2,
+                    reason="needs two CUDA cards: one spmd slot a card")
+def test_spmd_slots_across_two_cards_equal_one_card(cuda):
+    """A 4-shard ``GNNServer(mode="spmd")`` over ``cuda:0`` and ``cuda:1``
+    (two shards a card, f32 and u8 plans) bit for bit against the one-card
+    stack on the same plans, its output on ``cuda:0``; a ``ServingRuntime``
+    burst, whose batcher streams span both cards, equal to ``flush()``."""
+    from repro_torch.serving import GNNServer, ServingRuntime
+    from repro_torch.tuning import MachineModel, PlanCache
+
+    rng = np.random.default_rng(31)
+    g = _graph(9, 4000, 10.0, 0.8, "cpu", hub=1200)
+    x = torch.from_numpy(rng.normal(size=(4000, 32)).astype(np.float32))
+    h = torch.from_numpy(rng.normal(size=(4000, 8))
+                         .astype(np.float32)).to("cuda:0")
+    tk = dict(block_rows=256, measure_plan=False, measure_buckets=False,
+              machine=MachineModel())
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    for quant in (None, 8):
+        kw = dict(num_shards=4, mode="spmd", quant=quant, cache=PlanCache(),
+                  tune_kwargs=tk)
+        one = GNNServer(g, x, devices=cards[:1], **kw)
+        two = GNNServer(g, x, devices=cards, **kw)
+        assert two._devices == [cards[0]] * 2 + [cards[1]] * 2
+        for op in (None, h):
+            got = two.aggregate(op)
+            assert got.device == cards[0]
+            assert torch.equal(got, one.aggregate(op)), quant
+    t0, t1 = two.submit(), two.submit(h)
+    sync = two.flush()
+    with ServingRuntime(two, max_batch=4, max_delay_ms=5.0) as rt:
+        reqs = [rt.submit(None if i % 2 == 0 else h) for i in range(10)]
+        for i, r in enumerate(reqs):
+            assert torch.equal(r.result(60), sync[t0 if i % 2 == 0 else t1])
+
+
 def test_lm_serve_on_the_card_equals_the_cpu(cuda):
     """Smoke configs in float32 on one set of weights, on ``cuda`` and on
     the CPU: dense (full attention, and AES-KV at W = 8 over the int8

@@ -1,5 +1,6 @@
-"""The port's ``GNNServer(mode="spmd")``: every shard stacked on one device
-and served by one ``block_ell_spmm`` call a pass.
+"""The port's ``GNNServer(mode="spmd")`` on one device slot: every shard
+stacked on one device and served by one ``block_ell_spmm`` call a pass
+(``tests/test_torch_serving_spmd_slots.py`` holds several slots).
 
 Held on the CPU, through the kernels' plain versions, against
   * the port's loop mode on the same plans, bit for bit (``torch.equal``):
@@ -8,14 +9,17 @@ Held on the CPU, through the kernels' plain versions, against
   * the JAX package's spmd mode: in this process at one shard, and in one
     subprocess on four forced host devices over equal shards (88 rows; the
     reference's ragged trim raises ``ShardingTypeError`` on the installed
-    jax): f32 and int8 within 1e-5, the tolerance of
+    jax), against both a one-slot server and one of four CPU slots
+    (``devices=["cpu"] * 4``, the counterpart of four devices): f32 and
+    int8 within 1e-5, the tolerance of
     ``tests/test_torch_serving.py::test_quantized_server_within_half_scale``
     (the reference dequantizes in XLA before its row loop, 5.7e-6 from its
     own loop mode in int8);
   * the dense ``ref.csr_spmm`` on ragged shards (exact tunes, 1e-5);
-and its refusals (a degree-sorted plan, mixed ``block_rows``, several
-devices), one kernel call a pass, edge updates against loop mode, and the
-runtime against ``flush()``.
+and its refusals (a degree-sorted plan, mixed ``block_rows``, a slot that
+is neither a CPU nor a card, more slots than shards), one kernel call a
+pass, edge updates against loop mode, and the runtime against
+``flush()``.
 
 Every tune uses a fresh ``PlanCache()`` and ``measure_plan=False,
 measure_buckets=False``.
@@ -42,7 +46,7 @@ from repro_torch.distributed import SHARD_AXIS, serving_mesh
 from repro_torch.kernels import ops
 from repro_torch.serving import (GNNServer, ServingRuntime, partition_csr,
                                  plan_shard)
-from repro_torch.serving.engine import _SpmdBundle
+from repro_torch.serving.engine import _spmd_slots
 from repro_torch.tuning import MachineModel, PlanCache
 
 from conftest import random_csr
@@ -82,13 +86,15 @@ def _graph(rows, seed=0, feat=6):
     return g, x, h
 
 
-def _pair(g, x, shards, quant=None, exact=False):
-    """Loop and spmd servers on the same plans (one shared cache)."""
+def _pair(g, x, shards, quant=None, exact=False, slots=1):
+    """Loop and spmd servers on the same plans (one shared cache), the
+    spmd one over ``slots`` CPU slots."""
     cache = PlanCache()
     kw = dict(num_shards=shards, quant=quant, cache=cache,
-              tune_kwargs=_tk(g, exact=exact), devices=[CPU])
-    loop = GNNServer(to_port(g), torch.from_numpy(x), **kw)
-    spmd = GNNServer(to_port(g), torch.from_numpy(x), mode="spmd", **kw)
+              tune_kwargs=_tk(g, exact=exact))
+    loop = GNNServer(to_port(g), torch.from_numpy(x), devices=[CPU], **kw)
+    spmd = GNNServer(to_port(g), torch.from_numpy(x), mode="spmd",
+                     devices=[CPU] * slots, **kw)
     return loop, spmd
 
 
@@ -102,9 +108,10 @@ def test_spmd_bit_equal_to_loop_mode(shards, rows):
     g, x, h = _graph(rows, seed=rows)
     for quant in (None, 8):
         loop, spmd = _pair(g, x, shards, quant)
-        bundle = spmd._bundle
+        assert len(spmd._bundles) == 1
+        bundle = spmd._bundles[0]
         assert bundle._quant == (quant is not None)
-        assert bundle.mesh.shape == (shards,)
+        assert spmd._mesh.shape == (shards,)
         assert len(bundle.buckets) <= 3
         # the stacked live widths decode from the zero sentinel as stored
         bell = bundle.bell
@@ -204,13 +211,15 @@ def test_spmd_matches_reference_on_four_forced_host_devices(tmp_path):
     assert "REFERENCE-SPMD-OK" in r.stdout, r.stdout + r.stderr
     want = np.load(tmp_path / "out.npz")
     for quant, tag in ((None, "f32"), (8, "int8")):
-        _, spmd = _pair(g, x, 4, quant)
-        np.testing.assert_allclose(spmd.aggregate().numpy(),
-                                   want[tag + "_resident"],
-                                   rtol=1e-5, atol=1e-5)
-        np.testing.assert_allclose(
-            spmd.aggregate(torch.from_numpy(h)).numpy(),
-            want[tag + "_dense"], rtol=1e-5, atol=1e-5)
+        for slots in (1, 4):      # one stack; a slot a forced host device
+            _, spmd = _pair(g, x, 4, quant, slots=slots)
+            assert len(spmd._bundles) == slots
+            np.testing.assert_allclose(spmd.aggregate().numpy(),
+                                       want[tag + "_resident"],
+                                       rtol=1e-5, atol=1e-5)
+            np.testing.assert_allclose(
+                spmd.aggregate(torch.from_numpy(h)).numpy(),
+                want[tag + "_dense"], rtol=1e-5, atol=1e-5)
 
 
 def test_spmd_matches_dense_product_on_ragged_shards():
@@ -254,12 +263,14 @@ def test_spmd_refusals(case):
                             tune_kwargs=dict(_tk(g), block_rows=br))
                  for s, br in zip(shards, (8, 16))]
         with pytest.raises(ValueError, match="one block_rows"):
-            _SpmdBundle(shards, plans, xt, serving_mesh(2, CPU))
+            _spmd_slots(shards, plans, xt, serving_mesh(2, CPU))
     else:
-        with pytest.raises(ValueError, match="several cards"):
-            GNNServer(to_port(g), xt, num_shards=2, mode="spmd",
-                      cache=PlanCache(), tune_kwargs=_tk(g),
-                      devices=[CPU, "meta"])
+        kw = dict(num_shards=2, mode="spmd", cache=PlanCache(),
+                  tune_kwargs=_tk(g))
+        with pytest.raises(ValueError, match="slot 1 is a 'meta' device"):
+            GNNServer(to_port(g), xt, devices=[CPU, "meta"], **kw)
+        with pytest.raises(ValueError, match="got 3: a slot holds at least"):
+            GNNServer(to_port(g), xt, devices=[CPU] * 3, **kw)
 
 
 def _delta(g):
