@@ -21,7 +21,10 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    in an edge to column 0 of value +-0.0), float SpMM to 1e-5, the
    uint8 gather to 1e-4, the fused layer (f32/u8/u16 B, H in {1, 5, 41},
    both activations, plus one F = H = 2048 case) to 1e-4; the
-   dequantization bit-exact on the reference's test shapes; the blocked
+   dequantization bit-exact on the reference's test shapes and with
+   per-segment constants (S in {1, 3, 4} segments, lengths that are not
+   whole 16-element vectors, unaligned views, an out= slice, n = 0, u8 and
+   u16), and equal to one call a segment; the blocked
    SpMM (f32 to 1e-5, u8/u16 to 1e-4) on BlockELLs stitched from the same
    graphs at block_rows in {1, 256, 4096} with mixed strategies, over one
    to three width buckets and a partial partition, plus a "full" block
@@ -111,8 +114,10 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    int8, each on a fresh disk ``PlanCache`` over the loop servers'
    directory (4 disk hits: the same plans), its resident and dense F = 64
    results bit-equal (``torch.equal``) to a loop server's on those plans;
-   the launches of one pass (int8: one ``dequantize`` a shard, then the
-   float launches); a pass's device ms (CUDA events around passes queued
+   the launches of one pass (int8: one ``dequantize`` over the stack,
+   then the float launches; that launch's own device ms, from a
+   ``torch.profiler`` trace, beside its bytes bound); a pass's device ms
+   (CUDA events around passes queued
    behind a spin of the card) and host ms beside loop mode's, and its
    dispatch under ``set_sync_debug_mode("error")``; f32 also a
    ``ServingRuntime`` at the synchronous baseline's rps (64 requests, half
@@ -126,7 +131,7 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    the loop servers' disk caches (4 disk hits), resident and dense F = 64
    results ``torch.equal`` to a loop server's and the one-slot server's;
    the launches of one pass (``block_ell_spmm`` once a non-empty global
-   bucket a slot, at most slots x 3; int8 one ``dequantize`` a shard); a
+   bucket a slot, at most slots x 3; int8 one ``dequantize`` a slot); a
    pass's device and host ms beside the one-slot pass's, and its dispatch
    under ``set_sync_debug_mode("error")``.  With more than one card, the
    same over one slot a card, plus a ``ServingRuntime`` burst at the
@@ -220,8 +225,13 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    ``torch.sparse.mm`` on the CSR of the same live slots, ``ell_spmm`` on
    the same live slots and ``ell_spmm`` at W=128 on the same graph.  Both
    SpMMs also at the GCN's layer-2 width (F = 64, its hidden features),
-   f32 and uint8.  The dequantization beside
-   ``torch.addcmul``, Eq. 2 in one call.
+   f32 and uint8.  The dequantization (uint8 and uint16) with its
+   constants and output made once: its own device time a launch from a
+   ``torch.profiler`` trace (a CUDA graph's replay where the trace holds
+   no device time), the CUDA-event time of its calls, and the same with
+   the constants and output made in each call (the reading of earlier
+   runs), beside ``torch.addcmul``, Eq. 2 in one call.  Every kernel row
+   also logs ``host_ms``, the host's time a call.
 
 The last two lines of standard output are the ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``.
@@ -587,7 +597,11 @@ def check_wide_fused_layer(P, g, device, errs):
 
 def check_dequantize(P, device, errs):
     """The dequantization kernel against its plain version, bit for bit, on
-    the shapes of the reference's tests/test_kernels.py."""
+    the shapes of the reference's tests/test_kernels.py; then with
+    per-segment constants (``[S]`` tables): S in {1, 3, 4} segments whose
+    lengths are and are not whole 16-element vectors, q as it is and 1 or
+    4 elements off its vector grid, an ``out=`` slice 1 element off, an
+    empty matrix, u8 and u16, each also equal to one call a segment."""
     torch, np = P.torch, P.np
     for shape in ((8, 128), (256, 128), (100, 33), (1, 1)):
         for bits in (8, 16):
@@ -599,6 +613,41 @@ def check_dequantize(P, device, errs):
                     qf.q, qf.scale, qf.x_min)):
                 raise AssertionError(f"dequantize differs on {shape} "
                                      f"bits={bits}")
+            errs["dequantize"].append(0.0)
+
+    def shifted(q, k):
+        return torch.empty(q.numel() + k, dtype=q.dtype, device=device)[
+            k:].view(q.shape).copy_(q)
+
+    rng = np.random.default_rng(5)
+    for rows, feat, segs in ((12, 128, 1), (12, 128, 3), (12, 128, 4),
+                             (36, 7, 3), (4004, 33, 4), (3003, 128, 3),
+                             (0, 16, 4)):
+        for bits, dtype in ((8, torch.uint8), (16, torch.uint16)):
+            q = torch.empty((0, feat), dtype=dtype, device=device)
+            if rows:
+                q = P.quantize(torch.from_numpy(rng.normal(size=(
+                    rows, feat)).astype(np.float32)).to(device), bits).q
+            scale = torch.from_numpy(rng.uniform(0.01, 1.0, segs).astype(
+                np.float32)).to(device)
+            x_min = torch.from_numpy(rng.normal(size=segs).astype(
+                np.float32)).to(device)
+            want = P.dequant_mod.dequantize_plain(q, scale, x_min)
+            big = torch.full((rows * feat + 3,), float("nan"),
+                             device=device)
+            n = rows // segs
+            gots = [P.ops.dequantize(src, scale, x_min, bits=bits, out=out)
+                    for src, out in ((q, None), (shifted(q, 1), None),
+                                     (shifted(q, 4), None),
+                                     (shifted(q, 1),
+                                      big[1:-2].view(q.shape)))]
+            gots.append(torch.cat([
+                P.ops.dequantize(q[s * n:(s + 1) * n], scale[s], x_min[s],
+                                 bits=bits) for s in range(segs)]))
+            if not (all(torch.equal(g, want) for g in gots)
+                    and bool(big[0].isnan()) and bool(big[-2:].isnan().all())):
+                raise AssertionError(f"dequantize differs on {rows} x {feat}"
+                                     f" in {segs} segments, bits={bits}")
             errs["dequantize"].append(0.0)
 
 
@@ -1754,7 +1803,7 @@ def serving_spmd_path(P, ds, cache_root: Path) -> dict:
             block = per_pass[label].get("block_ell_spmm", 0)
             deq = per_pass[label].get("dequantize", 0)
             check(1 <= block <= SPMD_MAX_BUCKETS
-                  and deq == (SERVING_SHARDS if quant and op is None else 0),
+                  and deq == (1 if quant and op is None else 0),
                   f"launches a pass {name} {label}")
         loop_per_pass = comparing(lambda: _pass_launches(P, loop))
         times = comparing(lambda: {
@@ -1767,6 +1816,8 @@ def serving_spmd_path(P, ds, cache_root: Path) -> dict:
             for mode, srv in (("spmd", spmd), ("loop", loop))})
         dispatch = comparing(
             lambda: _dispatch_vs_completion(P, spmd, [None]))
+        deq_line = comparing(lambda: _spmd_dequantize(P, bundle)) \
+            if quant else None
         log({"phase": "serving_spmd", "plans": name,
              "build_s": build_s, "disk_hits": cache.stats.disk_hits,
              "buckets": [[w, len(ids)] for w, ids in bundle.buckets],
@@ -1777,7 +1828,8 @@ def serving_spmd_path(P, ds, cache_root: Path) -> dict:
              "equal_to_loop": equal, "vs_loop_max_abs_err": errs,
              "launches_a_pass": per_pass,
              "loop_launches_a_pass": loop_per_pass,
-             "pass_ms": times, "dispatch_vs_completion": dispatch})
+             "pass_ms": times, "dispatch_vs_completion": dispatch,
+             "resident_dequantize": deq_line})
 
         if name == "f32":
             base = P.sync_baseline(spmd, iters=16, warmup=2)
@@ -1872,7 +1924,7 @@ def serving_spmd_slots_path(P, ds, cache_root: Path) -> dict:
     plans (resident and a dense F = 64 operand), its output on ``cuda:0``;
     the launches of one pass (``block_ell_spmm`` once a non-empty global
     bucket a slot, at most slots x :data:`SPMD_MAX_BUCKETS`; int8 one
-    ``dequantize`` a shard); a pass's device ms (every card it uses spun
+    ``dequantize`` a slot); a pass's device ms (every card it uses spun
     first) and host ms beside the one-slot pass's; ``run_batch``'s dispatch
     under the sync debug mode "error".  Across cards, f32 also a
     ``ServingRuntime`` burst at the synchronous baseline's rps, its results
@@ -1960,7 +2012,7 @@ def serving_spmd_slots_path(P, ds, cache_root: Path) -> dict:
                 check(block == sum(len(b.buckets) for b in slots)
                       and 1 <= block <= len(slots) * SPMD_MAX_BUCKETS
                       and all(ids for b in slots for _, ids in b.buckets)
-                      and deq == (SERVING_SHARDS if quant and op is None
+                      and deq == (len(slots) if quant and op is None
                                   else 0),
                       f"launches a pass {name} {plans} {label}")
             times = comparing(lambda: timed(srv, devices))
@@ -2018,6 +2070,24 @@ def serving_spmd_slots_path(P, ds, cache_root: Path) -> dict:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  "spmd slots path")
     return launches
+
+
+def _spmd_dequantize(P, bundle) -> dict:
+    """The ``dequantize`` launch of an int8 resident pass, the call that
+    ``bundle.run`` makes (its uint8 stack, its ``[num_shards]`` tables), into
+    one output made once: its own device time (:func:`kernel_own_ms`) beside
+    its bytes bound (the stack read once as uint8, written once as f32)."""
+    torch = P.torch
+    q, feat = bundle._resident, bundle._resident.shape[1]
+    dst = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    ms, how, _ = kernel_own_ms(torch, lambda: P.ops.dequantize(
+        q, bundle._scale, bundle._x_min, bits=bundle._bits, out=dst),
+        DEQUANT_KERNEL)
+    t_bound, by = bound(q.numel() * (q.element_size() + 4), 2.0 * q.numel())
+    return {"stack": [q.shape[0], feat], "segments": bundle.num_shards,
+            "ms": ms, "ms_from": how,
+            "bound_ms": t_bound, "bound_by": by,
+            "share_of_bound": t_bound / ms}
 
 
 def _pass_launches(P, server, op=None) -> dict:
@@ -2175,19 +2245,15 @@ def _lm_device_profile(P, cfg, model, tokens, steps=3, top=0) -> dict:
             tok = logits.argmax(dim=-1).to(torch.int32)
         torch.cuda.synchronize()
 
-    def device_us(e):
-        return (getattr(e, "self_device_time_total", None)
-                or getattr(e, "self_cuda_time_total", 0))
-
     events = prof.key_averages()
-    us = sum(device_us(e) for e in events)
+    us = sum(_device_us(e) for e in events)
     out = {"device_busy_ms_per_step": us / 1e3 / steps if us else None,
            "kernels_per_step": sum(e.count for e in events) / steps}
     if top:
         out["top_kernels"] = [
-            [_kernel_label(e.key), device_us(e) / 1e3 / steps,
+            [_kernel_label(e.key), _device_us(e) / 1e3 / steps,
              e.count / steps]
-            for e in sorted(events, key=device_us, reverse=True)[:top]]
+            for e in sorted(events, key=_device_us, reverse=True)[:top]]
     return out
 
 
@@ -2961,6 +3027,64 @@ def time_ms(torch, fn, batch=TIMING_BATCH, reps=TIMING_REPS,
     return statistics.median(times)
 
 
+#: what the dequantization kernel's name holds in a profiler trace
+DEQUANT_KERNEL = "dequant_kernel"
+
+
+def _device_us(e) -> float:
+    """A ``key_averages()`` entry's device time, in us."""
+    return (getattr(e, "self_device_time_total", None)
+            or getattr(e, "self_cuda_time_total", 0))
+
+
+def kernel_own_ms(torch, fn, kernel, batch=TIMING_BATCH, reps=TIMING_REPS,
+                  warmup=3) -> tuple:
+    """The device time of one launch of the kernels whose name holds
+    ``kernel``, in ms, how it was read, and their launches in the read:
+    their device time in a ``torch.profiler`` trace of ``batch`` calls of
+    ``fn`` over their count (``"profiler"``); where the trace holds no
+    device time for them, ``batch`` calls captured in one CUDA graph and
+    its replays timed between CUDA events, the median of ``reps`` over
+    ``batch`` (``"graph"``: the time of a whole call of ``fn``, which
+    should then launch that kernel alone, once).
+    Neither reading holds the host's time, so the kernel's own time stands
+    even where the host queues slower than the card runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(batch):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if kernel in e.key]
+    us, count = sum(_device_us(e) for e in hits), sum(e.count for e in hits)
+    if us and count:
+        return us / 1e3 / count, "profiler", count
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(batch):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / batch)
+    return statistics.median(times), "graph", batch
+
+
 def host_ms(torch, fn, batch=TIMING_BATCH) -> float:
     """Host time of one call, in ms, when ``batch`` calls are issued back to
     back without waiting for the card: where it reaches :func:`time_ms`'s
@@ -3382,6 +3506,7 @@ def fused_layer_entry(P, ds, ell, live, launches, errs, timer, plain_timer,
         "max_abs_err": max(errs["fused_layer"] + errs["fused_layer_quant"]
                            + errs["fused_layer_int8"]),
         **layer1, "library_ms": None,
+        "host_ms": host_ms(torch, lambda: kernel(x, w1, b1, True, None)),
         "layer2": {**layer2, "F": HIDDEN, "H": ds.spec.num_classes},
         "u8": layer1_u8,
         "shape": {"rows": rows, "W": W_MAIN, "F": feat, "H": HIDDEN,
@@ -3389,33 +3514,47 @@ def fused_layer_entry(P, ds, ell, live, launches, errs, timer, plain_timer,
 
 
 def dequantize_entry(P, x, launches, errs, timer, plain_timer) -> dict:
-    """Eq. 2 over the reddit features quantized to uint8 (and uint16);
-    the library call is ``torch.addcmul(x_min, q, scale)``, Eq. 2 in one
-    call (it may contract into FMA: its largest difference from the
-    kernel is logged)."""
+    """Eq. 2 over the reddit features quantized to uint8 (and uint16), the
+    constants and the output made once, outside every timed call: ``ms``
+    is the kernel's own device time a launch (:func:`kernel_own_ms`, read
+    as ``ms_from`` says), ``events_ms`` the CUDA-event time of the
+    wrapper's calls (:func:`time_ms`), ``host_ms`` the host's time a call;
+    ``events_ms_setup_each_call`` times calls that compute ``scale`` (a
+    subtract and a divide) and allocate the output each time, as earlier
+    runs timed them.  The library call is ``torch.addcmul(x_min, q,
+    scale)``, Eq. 2 in one call (it may contract into FMA: its largest
+    difference from the kernel is logged)."""
     torch, ops = P.torch, P.ops
     n = x.numel()
     out = {}
     for bits in (8, 16):
         qf = P.quantize(x, bits)
+        q, scale, x_min = qf.q, qf.scale, qf.x_min
+        dst = torch.empty(q.shape, dtype=torch.float32, device=q.device)
 
         def fn():
-            return ops.dequantize(qf.q, qf.scale, qf.x_min, bits=bits)
+            return ops.dequantize(q, scale, x_min, bits=bits, out=dst)
 
         def pl():
-            return P.dequant_mod.dequantize_plain(qf.q, qf.scale, qf.x_min)
+            return P.dequant_mod.dequantize_plain(q, scale, x_min)
+
+        def lib():
+            return torch.addcmul(x_min, q, scale)
 
         if not torch.equal(fn(), pl()):
             raise AssertionError(f"dequantize differs at bits={bits}")
         errs["dequantize"].append(0.0)
-        def lib():
-            return torch.addcmul(qf.x_min, qf.q, qf.scale)
-
+        own, how, _ = kernel_own_ms(torch, fn, DEQUANT_KERNEL)
         t_bound, by = bound(n * (bits // 8) + n * 4, 2.0 * n)
-        out[bits] = {"ms": timer(fn), "plain_ms": plain_timer(pl),
-                     "bound_ms": t_bound, "bound_by": by,
-                     "library_ms": timer(lib),
-                     "library_max_abs_diff": float((lib() - fn()).abs().max())}
+        out[bits] = {
+            "ms": own, "ms_from": how, "events_ms": timer(fn),
+            "host_ms": host_ms(torch, fn),
+            "events_ms_setup_each_call": timer(lambda: ops.dequantize(
+                qf.q, qf.scale, qf.x_min, bits=bits)),
+            "plain_ms": plain_timer(pl), "bound_ms": t_bound,
+            "bound_by": by, "share_of_bound": t_bound / own,
+            "library_ms": timer(lib),
+            "library_max_abs_diff": float((lib() - fn()).abs().max())}
     return {"name": "dequantize", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/dequant.cu",
             "replaces": "src/repro/kernels/dequant.py:45",

@@ -157,7 +157,9 @@ def dequantize(q, scale, x_min, *, bits: int = 8, out=None):
 
     Args:
       q: quantized matrix uint8/uint16[n, f].
-      scale / x_min: the affine dequant constants.
+      scale / x_min: the affine dequant constants: two scalars, or two f32
+        ``[S]`` tables on ``q``'s device for ``S`` equal row segments of
+        ``q`` (segment ``s`` through entry ``s``), ``S`` dividing ``n``.
       bits: source bit width (8 or 16).
       out: optional contiguous f32[n, f] to write into.
 

@@ -175,10 +175,11 @@ class _SpmdBundle:
         (the reference scatters into a dump row instead).
 
     Each shard of a quantized stack has its own ``(scale, x_min)``, so no
-    one uint8 launch serves the stack: a pass dequantizes each shard's
-    uint8 slice (``ops.dequantize``, Eq. 2 rounded twice, as the uint8
-    gather rounds) into a float32 stack, then makes the float launches.
-    The uint8 stack is what stays resident.
+    one uint8 gather serves the stack: a pass dequantizes the uint8 stack
+    into a float32 one in one ``ops.dequantize`` call (Eq. 2 rounded
+    twice, as the uint8 gather rounds), shard ``s``'s rows through entry
+    ``s`` of ``[num_shards]`` tables of the shards' constants, then makes
+    the float launches.  The uint8 stack is what stays resident.
     """
 
     def __init__(self, shards, plans, features, device, bounds, quant):
@@ -216,7 +217,8 @@ class _SpmdBundle:
                                                 qs[0].q.shape[1]))
             for s, q in enumerate(qs):
                 self._resident[s * gcap:s * gcap + q.q.shape[0]] = q.q
-            self._eq2 = [(q.scale, q.x_min) for q in qs]
+            self._scale = torch.cat([q.scale.reshape(1) for q in qs])
+            self._x_min = torch.cat([q.x_min.reshape(1) for q in qs])
             self._bits = qs[0].bits
         else:
             self._resident = features.index_select(0, self._gidx).to(device)
@@ -234,13 +236,8 @@ class _SpmdBundle:
         if x is not None:
             stack = x.index_select(0, self._gidx).to(self.device)
         elif self._quant:
-            stack = torch.empty(self._resident.shape, dtype=torch.float32,
-                                device=self.device)
-            g = self.gcap
-            for s, (scale, x_min) in enumerate(self._eq2):
-                ops.dequantize(self._resident[s * g:(s + 1) * g], scale,
-                               x_min, bits=self._bits,
-                               out=stack[s * g:(s + 1) * g])
+            stack = ops.dequantize(self._resident, self._scale, self._x_min,
+                                   bits=self._bits)
         else:
             stack = self._resident
         out = ops.block_ell_spmm(self.bell, stack, buckets=self.buckets)

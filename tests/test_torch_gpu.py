@@ -291,7 +291,10 @@ def test_fused_layer_matches_plain(cuda):
 
 def test_dequantize_bit_exact(cuda):
     """tests/test_kernels.py's shapes, plus a misaligned view (the scalar
-    path) and a length that leaves a vector tail."""
+    path) and a length that leaves a vector tail; then per-segment
+    constants: S in {1, 3, 4} segments whose lengths are not multiples of
+    16 elements (each segment's own head and tail), an unaligned view, an
+    empty matrix, into a slice of a larger output, u8 and u16."""
     ops.reset_launch_counts()
     calls = 0
     for shape in ((8, 128), (256, 128), (100, 33), (1, 1), (1001, 37)):
@@ -304,8 +307,47 @@ def test_dequantize_bit_exact(cuda):
                 assert torch.equal(got, dequant_mod.dequantize_plain(
                     q, qf.scale, qf.x_min)), (shape, bits)
                 calls += q.numel() > 0
+    rng = np.random.default_rng(5)
+    for rows, feat, segs in ((12, 128, 1), (12, 128, 3), (12, 128, 4),
+                             (36, 7, 3), (4004, 33, 4), (3003, 128, 3),
+                             (0, 16, 4)):
+        for bits, dtype in ((8, torch.uint8), (16, torch.uint16)):
+            q = torch.empty((0, feat), dtype=dtype, device=cuda)
+            if rows:
+                q = quantize(torch.from_numpy(rng.normal(size=(
+                    rows, feat)).astype(np.float32)).to(cuda), bits).q
+            scale = torch.from_numpy(rng.uniform(0.01, 1.0, segs).astype(
+                np.float32)).to(cuda)
+            x_min = torch.from_numpy(rng.normal(size=segs).astype(
+                np.float32)).to(cuda)
+            want = dequant_mod.dequantize_plain(q, scale, x_min)
+            # q and views of it 1 element (no element aligns q and out
+            # together: the scalar path) and 4 elements (a longer head)
+            # off its vector grid; the 1-element view also into an out=
+            # slice 1 element off, so q and out align together again
+            big = torch.full((rows * feat + 3,), float("nan"), device=cuda)
+            for src, out in ((q, None), (_shifted(q, 1), None),
+                             (_shifted(q, 4), None),
+                             (_shifted(q, 1), big[1:-2].view(q.shape))):
+                got = ops.dequantize(src, scale, x_min, bits=bits, out=out)
+                assert torch.equal(got, want), (rows, feat, segs, bits)
+                calls += q.numel() > 0
+            assert big[0].isnan() and big[-2:].isnan().all()
+            # bit-equal to one call a segment
+            n = rows // segs
+            assert torch.equal(want, torch.cat([
+                ops.dequantize(q[s * n:(s + 1) * n], scale[s], x_min[s],
+                               bits=bits) for s in range(segs)]))
+            calls += segs * (n * feat > 0)
     torch.cuda.synchronize()
-    assert ops.launch_counts()["dequantize"] == calls == 18
+    assert ops.launch_counts()["dequantize"] == calls == 102
+
+
+def _shifted(q, k):
+    """A contiguous copy of ``q`` that starts ``k`` elements into its
+    allocation."""
+    return torch.empty(q.numel() + k, dtype=q.dtype, device=q.device)[
+        k:].view(q.shape).copy_(q)
 
 
 def test_block_ell_spmm_matches_plain(cuda):
@@ -498,7 +540,7 @@ def test_spmd_serving_on_the_card_equals_the_cpu(cuda):
     against the same server on the CPU (1e-5, u8 1e-4), and bit for bit
     against loop mode on the card over the same plans; a pass launches
     ``block_ell_spmm`` once a global bucket (at most 3) and, on u8 plans,
-    ``dequantize`` once a shard."""
+    ``dequantize`` once, over the whole stack."""
     from repro_torch.serving import GNNServer
     from repro_torch.tuning import MachineModel, PlanCache
 
@@ -524,7 +566,7 @@ def test_spmd_serving_on_the_card_equals_the_cpu(cuda):
             torch.cuda.synchronize()
             counts = ops.launch_counts()
             assert 1 <= counts["block_ell_spmm"] <= 3
-            assert counts["dequantize"] == (4 if quant and op is None
+            assert counts["dequantize"] == (1 if quant and op is None
                                             else 0)
             torch.testing.assert_close(got.cpu(), host.aggregate(op),
                                        rtol=tol, atol=tol,

@@ -149,11 +149,12 @@ def test_one_block_ell_spmm_call_a_pass(monkeypatch, quant):
     for name in calls:
         monkeypatch.setattr(ops, name, spy(name))
     spmd.aggregate()
+    # one dequantize over the whole uint8 stack, not one a shard
     assert calls == {"block_ell_spmm": 1,
-                     "dequantize": 0 if quant is None else 4}
+                     "dequantize": 0 if quant is None else 1}
     spmd.aggregate(torch.from_numpy(h))
     assert calls["block_ell_spmm"] == 2
-    assert calls["dequantize"] == (0 if quant is None else 4)
+    assert calls["dequantize"] == (0 if quant is None else 1)
 
 
 def test_spmd_matches_reference_at_one_shard():

@@ -174,8 +174,9 @@ def test_launches_a_pass(monkeypatch, quant):
             assert 1 <= launches <= slots * 3
             assert all(ids for bk in calls["block_ell_spmm"]
                        for _, ids in bk)
+            # one dequantize a slot, over its whole uint8 stack
             assert calls["dequantize"] == \
-                (SHARDS if quant and op is None else 0)
+                (slots if quant and op is None else 0)
 
 
 def test_rules_hold_across_slots():
