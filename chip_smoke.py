@@ -225,7 +225,14 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    ``torch.sparse.mm`` on the CSR of the same live slots, ``ell_spmm`` on
    the same live slots and ``ell_spmm`` at W=128 on the same graph.  Both
    SpMMs also at the GCN's layer-2 width (F = 64, its hidden features),
-   f32 and uint8.  The dequantization (uint8 and uint16) with its
+   f32 and uint8.  ``ell_spmm`` also on Reddit's layer-1 operand at its
+   published size (232,965 x 602, f32 and uint8, above the card's L2)
+   over a random graph of 121 edges a row on average (about 75 live
+   slots a row at W = 128; the ``ell_panels`` line, the ``f602`` entry
+   of the ``ell_spmm`` row): one launch and one panel launch counted a
+   checked call, bit for bit its plain version, timed beside the same
+   kernel in row order, the plain version, the bound and
+   ``torch.sparse.mm``.  The dequantization (uint8 and uint16) with its
    constants and output made once: its own device time a launch from a
    ``torch.profiler`` trace (a CUDA graph's replay where the trace holds
    no device time), the CUDA-event time of its calls, and the same with
@@ -3178,6 +3185,122 @@ def gcn_hidden(P, ds, ell, live):
     return torch.relu(P.ops.ell_spmm(ell, x, live) @ w1 + b1).contiguous()
 
 
+#: Reddit's layer-1 operand at its published size (232,965 nodes, 602
+#: features, as the benchmark's ``gcn-reddit`` cells give it): B of 561 MB
+#: in f32 and 140 MB in uint8, both above an H100's L2, so ``ell_spmm``
+#: gathers them panel by panel; make_dataset's Reddit (128 features) and
+#: the hidden width stay below the panel rule
+PANEL_ROWS, PANEL_FEAT = 232_965, 602
+#: average edges a row of its graph: the benchmark's Reddit keeps about 121
+#: live slots a row at W = 128, where the gather is bound by bytes
+PANEL_AVG_DEG = 121
+
+
+def panel_graph(P, device):
+    """A graph of PANEL_ROWS rows drawn on the card from seed 31:
+    lognormal degrees (sigma 1) scaled to average PANEL_AVG_DEG, every
+    64th row empty, sources uniform over the rows, values normal."""
+    torch = P.torch
+    gen = torch.Generator(device=device).manual_seed(31)
+    deg = torch.empty(PANEL_ROWS, device=device).log_normal_(
+        0.0, 1.0, generator=gen)
+    deg = (deg / deg.mean() * PANEL_AVG_DEG).long()
+    deg[::64] = 0
+    row_ptr = torch.zeros(PANEL_ROWS + 1, dtype=torch.int64, device=device)
+    row_ptr[1:] = torch.cumsum(deg, 0)
+    nnz = int(row_ptr[-1])
+    col = torch.randint(0, PANEL_ROWS, (nnz,), generator=gen, device=device,
+                        dtype=torch.int32)
+    val = torch.randn(nnz, generator=gen, device=device)
+    return P.CSR(row_ptr.to(torch.int32), col, val, PANEL_ROWS)
+
+
+def ell_panel_entry(P, device, timer, plain_timer) -> dict:
+    """``ell_spmm`` on Reddit's layer-1 operand (PANEL_ROWS x PANEL_FEAT,
+    f32 and uint8) over :func:`panel_graph` sampled at W_MAIN, where the
+    wrapper's rule takes the panel kernel.  Each checked call, launch
+    counts and panel counters read just before, must launch ``ell_spmm``
+    once, count one panel launch and its F / P panels, and equal the
+    plain version bit for bit; then its time beside the same kernel in
+    row order (P = F), the plain version's, the bound (each B row the
+    live slots name read once), one B row a live slot (no reuse in any
+    cache) and, for f32, ``torch.sparse.mm`` on the same live slots."""
+    torch, ops, obs, ell_mod = P.torch, P.ops, P.obs, P.ell_mod
+    ell = ops.aes_sample(panel_graph(P, device), W_MAIN)
+    live = ell.live_w
+    rows, feat = PANEL_ROWS, PANEL_FEAT
+    n_live = int(live.sum())
+    live_mask = torch.arange(W_MAIN, device=device)[None, :] < live[:, None]
+    uniq = int(torch.unique(ell.col[live_mask]).numel())
+    crow = torch.zeros(rows + 1, dtype=torch.int64, device=device)
+    crow[1:] = torch.cumsum(live.long(), 0)
+    a_sparse = torch.sparse_csr_tensor(crow, ell.col[live_mask].long(),
+                                       ell.val[live_mask], (rows, rows))
+    del live_mask
+    x = torch.randn((rows, feat), generator=torch.Generator(
+        device=device).manual_seed(37), device=device)
+    qf = P.quantize(x, 8)
+    l2 = torch.cuda.get_device_properties(device).L2_cache_size
+    reg = obs.default_registry()
+    counters = ("kernels.ell_spmm.panel_launches", "kernels.ell_spmm.panels")
+    ell_in = n_live * 8 + rows * 4                # live (val, col) + live_w
+    out = {"shape": {"rows": rows, "W": W_MAIN, "F": feat,
+                     "live_slots": n_live, "distinct_b_rows": uniq,
+                     "l2_bytes": l2}}
+    prev = obs.set_enabled(True)
+    try:
+        for key, b, meta in (("f32", x, None),
+                             ("u8", qf.q, (qf.scale, qf.x_min))):
+            item = b.element_size()
+            panel = ell_mod._panel_features(rows, feat, item, l2)
+            if panel >= feat:
+                raise AssertionError(
+                    f"ell_spmm: the {key} operand [{rows}, {feat}] takes no "
+                    f"panels on a card with {l2} bytes of L2")
+
+            def fn(b=b, meta=meta):
+                return ops.ell_spmm(ell, b, live, quantized_meta=meta)
+
+            def plain(b=b, meta=meta):
+                return ell_mod.ell_spmm_plain(ell.val, ell.col, live, b, meta)
+
+            ops.reset_launch_counts()
+            before = [reg.counter_value(c) for c in counters]
+            got = fn()
+            counted = [reg.counter_value(c) - n
+                       for c, n in zip(counters, before)]
+            launched = ops.launch_counts()["ell_spmm"]
+            if launched != 1 or counted != [1, -(-feat // panel)]:
+                raise AssertionError(
+                    f"ell_spmm {key}: {launched} launches and panel counters "
+                    f"{counted}, want 1 and [1, {-(-feat // panel)}]")
+            want = plain()
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"ell_spmm {key} in panels of {panel} differs from its "
+                    f"plain version: {float((got - want).abs().max())}")
+            del got, want
+            out[key] = {
+                "panel": panel, "panels": counted[1], "launches": launched,
+                "panel_launches": counted[0], "max_abs_err": 0.0,
+                "ms": timer(fn),
+                "row_order_ms": timer(lambda b=b, meta=meta: ell_mod._launch(
+                    ell.val, ell.col, live, b, meta, feat)),
+                "plain_ms": plain_timer(plain),
+                "bound_ms": bound(ell_in + uniq * feat * item
+                                  + rows * feat * 4, 2.0 * n_live * feat)[0],
+                "gather_bound_ms": (ell_in + n_live * feat * item
+                                    + rows * feat * 4)
+                / HBM_BYTES_PER_S * 1e3,
+                "library_ms": None if meta else timer(
+                    lambda: torch.sparse.mm(a_sparse, x)),
+                "host_ms": host_ms(torch, fn)}
+    finally:
+        obs.set_enabled(prev)
+    log({"phase": "ell_panels", **out})
+    return out
+
+
 def kernel_times(P, ds, device, launches, errs, timer, plain_timer):
     """Phase 5: each kernel at the main path's shapes (GCN's adjacency,
     W=128, the F=128 input features, the GCN's two layers) against its
@@ -3719,6 +3842,7 @@ def main() -> None:
                                     warmup=1)
     kernels, hidden = kernel_times(P, ds, device, launches, errs, timer,
                                    plain_timer)
+    kernels[0]["f602"] = ell_panel_entry(P, device, timer, plain_timer)
     kernels.append(block_entry(P, ds, plan, hidden, launches, errs, timer,
                                plain_timer, kernels[0]["ms"]))
     torch.cuda.synchronize()

@@ -76,8 +76,8 @@ block_ell_spmm_kernel(const int64_t* __restrict__ blocks, int n_blocks,
   const float2 eq2c = eq2_constants(scale_p, x_min_p);
   group_gather_row<G, K, kVec>(
       val + seg, col + seg, in ? width : 0,
-      in ? min(__ldg(live_w + row), width) : 0, b, feat, eq2c.x, eq2c.y,
-      in ? out + row * feat : nullptr, lane);
+      in ? min(__ldg(live_w + row), width) : 0, b, feat, feat, eq2c.x,
+      eq2c.y, in ? out + row * feat : nullptr, lane);
 }
 
 template <typename T>

@@ -195,19 +195,40 @@ __device__ __forceinline__ void lane_fma(float v,
   }
 }
 
-// Stores a lane's K features f.. of an output row (none at or past F).
-template <bool kVec, int K>
+// A store of the output: plain, or with kStream marked evict-first
+// (st.global.cs), so that an output written once does not push B's rows
+// out of L2.
+template <bool kStream, typename T>
+__device__ __forceinline__ void stream_store(T* p, T v) {
+  if constexpr (kStream) {
+    __stcs(p, v);
+  } else {
+    *p = v;
+  }
+}
+
+// Stores a lane's K features f.. of an output row (none at or past F): a
+// float2 at K = 2 and float4s at K = 4 to 16 when kVec (the caller
+// guarantees F a multiple of K), else one masked float a feature.
+template <bool kVec, int K, bool kStream = false>
 __device__ __forceinline__ void lane_store(float* orow, int f, int feat,
                                            const float (&acc)[K]) {
+  static_assert(K % 4 == 0 || (kVec && K == 2), "K = 2 only with kVec");
+  if constexpr (K == 2) {
+    stream_store<kStream>(reinterpret_cast<float2*>(orow + f),
+                          make_float2(acc[0], acc[1]));
+  } else {
 #pragma unroll
-  for (int j = 0; j < K; j += 4) {
-    if constexpr (kVec) {
-      *reinterpret_cast<float4*>(orow + f + j) =
-          make_float4(acc[j], acc[j + 1], acc[j + 2], acc[j + 3]);
-    } else {
+    for (int j = 0; j < K; j += 4) {
+      if constexpr (kVec) {
+        stream_store<kStream>(
+            reinterpret_cast<float4*>(orow + f + j),
+            make_float4(acc[j], acc[j + 1], acc[j + 2], acc[j + 3]));
+      } else {
 #pragma unroll
-      for (int i = j; i < j + 4; ++i)
-        if (f + i < feat) orow[f + i] = acc[i];
+        for (int i = j; i < j + 4; ++i)
+          if (f + i < feat) stream_store<kStream>(orow + f + i, acc[i]);
+      }
     }
   }
 }
@@ -223,7 +244,9 @@ constexpr int kGatherMinGroup = 4;
 //   warp), longer ones 4 features a lane.
 constexpr int kGatherWideLanesMax = 32;
 
-// dst[f] = sum_{k < live} vrow[k] * B[crow[k], f] for f < F, computed by
+// dst[f] = sum_{k < live} vrow[k] * B[crow[k] * ld + f] for f < F (ld, the
+// row stride of B, is F where the group gathers whole rows and larger
+// where it gathers one panel of them), computed by
 // the group of G lanes that holds one row; the 32 / G groups
 // of a warp hold 32 / G rows, and every lane of the warp calls this
 // together (the loops are bounded by the warp's longest row, so the
@@ -232,8 +255,8 @@ constexpr int kGatherWideLanesMax = 32;
 // K and B aligned to that size), else masked scalar loads converted at
 // load.  The group loads G slots of (val, col) at once, one per lane, and
 // broadcasts them with shuffles; the next G slots load while this chunk's
-// B rows do.  Each lane issues the B loads of up to kGatherUnroll slots
-// before their FMAs, so a row's B rows are in flight together, not one
+// B rows do.  Each lane issues the B loads of up to kUnroll slots
+// (kGatherUnroll unless the caller names another) before their FMAs, so a row's B rows are in flight together, not one
 // after the other.  Sums run in slot order per feature with f32
 // accumulators, rounded after the product and after the sum as the plain
 // version rounds (lane_fma<true>; with FMA a row of 2048 live slots
@@ -242,23 +265,30 @@ constexpr int kGatherWideLanesMax = 32;
 // Eq. 2 (eq2, rounded twice) on the integer's exact f32 value.  The first
 // chunk of (val, col) loads up to avail (the row's slots in memory, >=
 // live) before live is needed, so it overlaps the load of live.  A group
-// past the last row passes avail = live = 0 and dst = nullptr.
-template <int G, int K, bool kVec, typename T>
+// past the last row passes avail = live = 0 and dst = nullptr.  kStream
+// loads (val, col) and stores dst evict-first (__ldcs, stream_store).
+template <int G, int K, bool kVec, bool kStream = false,
+          int kUnroll = kGatherUnroll, typename T>
 __device__ __forceinline__ void group_gather_row(
     const float* __restrict__ vrow, const int* __restrict__ crow, int avail,
-    int live, const T* __restrict__ b, int feat, float scale, float x_min,
-    float* __restrict__ dst, int lane) {
+    int live, const T* __restrict__ b, int ld, int feat, float scale,
+    float x_min, float* __restrict__ dst, int lane) {
   constexpr unsigned kAll = 0xffffffffu;
   // the scalar path holds converted features: at most 4 slots in flight
-  constexpr int kU = kVec || kGatherUnroll < 4 ? kGatherUnroll : 4;
+  constexpr int kU = kVec || kUnroll < 4 ? kUnroll : 4;
   constexpr int U = kU < G ? kU : G;
   static_assert(G % U == 0, "a chunk of G slots is whole unroll steps");
   const int gl = lane % G;
   float v0 = 0.f;
   int c0 = 0;
   if (gl < avail) {
-    v0 = vrow[gl];
-    c0 = crow[gl];
+    if constexpr (kStream) {
+      v0 = __ldcs(vrow + gl);
+      c0 = __ldcs(crow + gl);
+    } else {
+      v0 = vrow[gl];
+      c0 = crow[gl];
+    }
   }
   const int warp_live = __reduce_max_sync(kAll, live);
   for (int f0 = 0; f0 < feat; f0 += K * G) {
@@ -273,8 +303,13 @@ __device__ __forceinline__ void group_gather_row(
       float nv = 0.f;
       int nc = 0;
       if (k0 + G + gl < live) {
-        nv = vrow[k0 + G + gl];
-        nc = crow[k0 + G + gl];
+        if constexpr (kStream) {
+          nv = __ldcs(vrow + k0 + G + gl);
+          nc = __ldcs(crow + k0 + G + gl);
+        } else {
+          nv = vrow[k0 + G + gl];
+          nc = crow[k0 + G + gl];
+        }
       }
       const int n = min(G, warp_live - k0);
       for (int k1 = 0; k1 < n; k1 += U) {
@@ -283,7 +318,7 @@ __device__ __forceinline__ void group_gather_row(
         for (int u = 0; u < U; ++u) {
           const int c = __shfl_sync(kAll, cc, k1 + u, G);
           if (has && k0 + k1 + u < live)
-            x[u] = lane_load<kVec, K>(b, static_cast<int64_t>(c) * feat, f,
+            x[u] = lane_load<kVec, K>(b, static_cast<int64_t>(c) * ld, f,
                                       feat, scale, x_min);
         }
 #pragma unroll
@@ -296,7 +331,8 @@ __device__ __forceinline__ void group_gather_row(
       cv = nv;
       cc = nc;
     }
-    if (has && dst != nullptr) lane_store<kVec>(dst, f, feat, acc);
+    if (has && dst != nullptr)
+      lane_store<kVec, K, kStream>(dst, f, feat, acc);
   }
 }
 

@@ -9,18 +9,63 @@ its plain PyTorch version, which the wrapper runs for CPU tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ell_spmm_rowloop
 
 _QUANT_DTYPES = {torch.uint8: "ell_spmm_u8", torch.uint16: "ell_spmm_u16"}
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# (val, col, live_w, b, out, rows, width, feat[, &scale, &x_min], stream)
-_SIGNATURES = {"ell_spmm_f32": [_P] * 5 + [_I] * 3 + [_P],
-               **{fn: [_P] * 5 + [_I] * 3 + [_P] * 3
+# (val, col, live_w, b, out, rows, width, feat, panel[, &scale, &x_min],
+#  stream)
+_SIGNATURES = {"ell_spmm_f32": [_P] * 5 + [_I] * 4 + [_P],
+               **{fn: [_P] * 5 + [_I] * 4 + [_P] * 3
                   for fn in _QUANT_DTYPES.values()}}
+
+#: The share of the card's L2 that one panel of B may fill.
+_PANEL_L2_SHARE = 0.6
+#: The narrowest panel in bytes a row (one 32-byte sector).
+_PANEL_MIN_BYTES = 32
+#: The features one pass of a warp covers in the row-order walk (32 lanes
+#: of 4): up to this F each row's chain of (val, col) loads is walked once,
+#: and panels would walk it once a panel.  F stands in for what decides
+#: it, the live slots a row: panels lost on ``make_dataset``'s Reddit at
+#: F = 128 and 7.1 live slots a row (the chain of loads bounds the
+#: gather) and won on the benchmark's at F = 602 and 121 (bytes bound
+#: it).  The host cannot count live slots without waiting on the card, and
+#: no measured operand is bytes-bound at F <= 128 with B above L2.
+_ONE_PASS_FEATURES = 128
+
+
+def _panel_features(rows_b: int, feat: int, itemsize: int,
+                    l2_bytes: int) -> int:
+    """Features a panel of ``B`` (``[rows_b, feat]``, ``itemsize`` bytes an
+    element) gathers on a card with ``l2_bytes`` of L2: ``feat`` (rows in
+    row order over all of F) where one pass covers F
+    (:data:`_ONE_PASS_FEATURES`), where ``B`` fits
+    :data:`_PANEL_L2_SHARE` of L2, or where no panel of
+    :data:`_PANEL_MIN_BYTES` or more does; else the widest power of two
+    (whole lane groups) whose column ``rows_b * P * itemsize`` fits.
+
+    Every element size takes panels: on Reddit's layer 1 (232,965 x 602,
+    an H100) f32 P = 32 ran 13.4 against 22.4 ms in row order, uint8 P =
+    128 11.9 against 13.6, uint16 P = 64 14.9 against 16.3, each launch's
+    own time (``scripts/ell_panel_times.py``, PERF.md)."""
+    budget = l2_bytes * _PANEL_L2_SHARE
+    if feat <= _ONE_PASS_FEATURES or rows_b * feat * itemsize <= budget:
+        return feat
+    fit = int(budget // (rows_b * itemsize))
+    p = 1 << (fit.bit_length() - 1) if fit else 0
+    return p if p * itemsize >= _PANEL_MIN_BYTES else feat
+
+
+@functools.lru_cache(maxsize=None)
+def _l2_bytes(device_index: int) -> int:
+    """The L2 cache of CUDA card ``device_index``, in bytes."""
+    return torch.cuda.get_device_properties(device_index).L2_cache_size
 
 
 def _eq2_constants(quantized_meta, device):
@@ -80,6 +125,19 @@ def ell_spmm(val: torch.Tensor, col: torch.Tensor, live_w: torch.Tensor,
     if _build.route(val, col, live_w, b) == "cpu":
         return ell_spmm_plain(val, col, live_w, b, quantized_meta)
 
+    feat = b.shape[1]
+    panel = _panel_features(b.shape[0], feat, b.element_size(),
+                            _l2_bytes(val.device.index))
+    if panel < feat and val.shape[0] > 0:
+        obs.count("kernels.ell_spmm.panel_launches")
+        obs.count("kernels.ell_spmm.panels", -(-feat // panel))
+    return _launch(val, col, live_w, b, quantized_meta, panel)
+
+
+def _launch(val, col, live_w, b, quantized_meta, panel: int):
+    """One launch of the kernel on checked CUDA inputs: the panel-major
+    walk over panels of ``panel`` features where ``panel`` < F, else rows
+    in row order over all of F."""
     rows, width = val.shape
     feat = b.shape[1]
     out = torch.empty((rows, feat), dtype=torch.float32, device=val.device)
@@ -87,7 +145,7 @@ def ell_spmm(val: torch.Tensor, col: torch.Tensor, live_w: torch.Tensor,
         return out.zero_()
     lib = _build.load("ell_spmm", _SIGNATURES)
     args = [_build.ptr(t) for t in (val, col, live_w, b, out)]
-    args += [rows, width, feat]
+    args += [rows, width, feat, panel]
     if quantized_meta is None:
         fn = lib.ell_spmm_f32
     else:

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import obs
 from repro_torch.core.graph import CSR, csr_from_edges, ell_live_widths
 from repro_torch.core.graph import partition_width_buckets
 from repro_torch.core.quantization import quantize
@@ -103,8 +104,17 @@ def _operands(x: torch.Tensor):
     return out
 
 
+def _panel_counts() -> tuple:
+    """``kernels.ell_spmm.panel_launches`` and ``kernels.ell_spmm.panels``
+    so far."""
+    reg = obs.default_registry()
+    return (reg.counter_value("kernels.ell_spmm.panel_launches"),
+            reg.counter_value("kernels.ell_spmm.panels"))
+
+
 def _check_all(g: CSR, x: torch.Tensor, W: int):
     ops.reset_launch_counts()
+    panels = _panel_counts()
     ell = ops.aes_sample(g, W)
     val, col = aes_mod.aes_sample_plain(g.row_ptr, g.col_ind, g.val, W)
     assert torch.equal(ell.val, val) and torch.equal(ell.col, col)
@@ -124,6 +134,7 @@ def _check_all(g: CSR, x: torch.Tensor, W: int):
     assert ops.launch_counts() == {"aes_sample": 1, "ell_spmm": 3,
                                    "fused_aes_spmm": 1, "fused_layer": 0,
                                    "dequantize": 0, "block_ell_spmm": 0}
+    assert _panel_counts() == panels  # operands far below L2: row order
 
 
 def test_kernels_match_plain(cuda):
@@ -197,6 +208,80 @@ def test_empty_graph_and_empty_rows(cuda):
     rows = np.repeat(np.arange(20), 3)
     partial = csr_from_edges(np.arange(60) % 40, rows, 40, device=cuda)
     _check_all(partial, torch.randn((40, 9), device=cuda), 16)
+
+
+def test_ell_spmm_panels_match_plain_bit_for_bit(cuda):
+    """The panel-major walk, each panel width forced, bit for bit the
+    plain version: f32 at F = 602 (8-byte lanes, the ragged last panel),
+    604 (16-byte lanes), 33 and 130; uint8 at 602 (the masked scalar path)
+    and 608 (16-byte lanes); uint16 at 604 (8-byte lanes); panels of 2 to
+    48 features (one to 32 lanes a row, several rows a warp); B 4 (f32),
+    2 (u16) or 1 (u8) bytes past an aligned base; rows with no live
+    slot."""
+    g = _graph(21, 300, 9.0, 0.7, cuda)
+    for W in (16, 128):
+        ell = ops.aes_sample(g, W)
+        live = ell.live_w
+        assert (live == 0).any()
+        for feat, kinds in ((602, ("f32", "u8")), (604, ("f32", "u16")),
+                            (33, ("f32",)), (130, ("f32",)),
+                            (608, ("u8",))):
+            x = torch.randn((300, feat), generator=torch.Generator()
+                            .manual_seed(feat)).to(cuda)
+            for b, meta, _ in _operands(x):
+                kind = {torch.float32: "f32", torch.uint8: "u8",
+                        torch.uint16: "u16"}[b.dtype]
+                if kind not in kinds:
+                    continue
+                want = ell_mod.ell_spmm_plain(ell.val, ell.col, live, b,
+                                              meta)
+                for src in (b, _shifted(b, 1)):
+                    for p in (2, 8, 32, 48):
+                        got = ell_mod._launch(ell.val, ell.col, live, src,
+                                              meta, p)
+                        assert torch.equal(got, want), (W, feat, kind, p,
+                                                        src.data_ptr() % 16)
+
+
+def test_ell_spmm_panels_engage_above_l2(cuda):
+    """An operand larger than the card's L2 at Reddit's layer-1 shape,
+    [232,965, 602] f32 (561 MB), over a sparse random graph (W = 16, many
+    rows with no live slot): the rule picks a panel narrower than F, even,
+    of 32 bytes or more, under the L2 share, with a ragged last panel;
+    ``ops.ell_spmm`` is bit for bit the plain version, aligned and 4 bytes
+    off alignment, and counts one panel launch and its panels each time.
+    uint8 and uint16 B of the same features: bit for bit, panels counted
+    where the rule gives them panels."""
+    prev = obs.set_enabled(True)
+    try:
+        n, feat = 232_965, 602
+        l2 = torch.cuda.get_device_properties(cuda).L2_cache_size
+        p = ell_mod._panel_features(n, feat, 4, l2)
+        assert p < feat and p % 2 == 0 and p * 4 >= 32 and feat % p
+        assert n * p * 4 <= ell_mod._PANEL_L2_SHARE * l2
+        g = _graph(22, n, 4.0, 0.7, cuda)
+        ell = ops.aes_sample(g, 16)
+        live = ell.live_w
+        empty = live == 0
+        assert empty.any()
+        x = torch.randn((n, feat), generator=torch.Generator(
+            device=cuda).manual_seed(22), device=cuda)
+        for b, meta, _ in _operands(x):
+            want = ell_mod.ell_spmm_plain(ell.val, ell.col, live, b, meta)
+            assert not want[empty].any()
+            bp = ell_mod._panel_features(n, feat, b.element_size(), l2)
+            for src in (b, _shifted(b, 1)):
+                before = _panel_counts()
+                got = ops.ell_spmm(ell, src, live, quantized_meta=meta)
+                assert torch.equal(got, want), (b.dtype,
+                                                src.data_ptr() % 16)
+                engaged = bp < feat
+                assert _panel_counts() == (
+                    before[0] + engaged,
+                    before[1] + engaged * -(-feat // bp)), b.dtype
+            del want, got
+    finally:
+        obs.set_enabled(prev)
 
 
 def test_wide_w_uses_opt_in_shared_memory(cuda):
